@@ -78,7 +78,11 @@ def _all_cases() -> Iterator[Tuple[Type[Benchmark], str, Dict[str, Any]]]:
 
 def _run_child(script: str, case_name: str,
                timeout_s: float) -> BenchmarkResult:
-    """Run one case isolated in a fresh interpreter."""
+    """Run one case isolated in a fresh interpreter.
+
+    Children run one after another, and this parent process never imports
+    JAX, so it never opens a backend: one process at a time holds the card
+    (a JAX process reserves most of its memory when it first uses it)."""
     cmd = [sys.executable, script, "--run-case", case_name]
     t0 = time.time()
     try:
@@ -105,6 +109,9 @@ def _run_child(script: str, case_name: str,
 
 def _execute_case(case_name: str) -> None:
     """Child-process entry: find the case, run it, print one JSON line."""
+    from fewbit_tpu.util import setup_compile_cache
+
+    setup_compile_cache()
     for cls, name, kwargs in _all_cases():
         if name == case_name:
             result = cls().run(**kwargs)

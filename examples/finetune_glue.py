@@ -55,6 +55,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from fewbit_tpu.util import setup_compile_cache
+
+    setup_compile_cache()
     from fewbit_tpu.models import (RobertaConfig,
                                    RobertaForSequenceClassification)
     from fewbit_tpu.train import (TrainConfig, create_train_state,

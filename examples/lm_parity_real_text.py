@@ -87,8 +87,7 @@ def main():
                         help="append a markdown section to this file")
     parser.add_argument("--dtype", default="float32",
                         choices=("float32", "bfloat16"),
-                        help="activation dtype (bf16 is the recommended "
-                             "TPU configuration)")
+                        help="activation dtype")
     args = parser.parse_args()
 
     configs = [

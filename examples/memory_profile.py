@@ -2,7 +2,8 @@
 notebooks/few-bit-backward/memory-usage-operation-only.py).
 
 Reports, per activation function and bit width: residual bytes per element
-(exact, from the VJP closure) and — on TPU — fused-kernel timings.
+(exact, from the VJP closure) and, with ``--time``, forward timings on the
+current backend.
 
     python examples/memory_profile.py [--time]
 """

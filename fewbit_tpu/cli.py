@@ -136,7 +136,7 @@ def main(argv=None) -> int:
         import jax
 
         # The quantizer differentiates tiny 1-D batches; run it on the host
-        # in float64 (TPU backends neither support f64 nor benefit here).
+        # in float64 (accelerators gain nothing here, and many lack f64).
         # Both flags are restored afterwards so an in-process caller (tests,
         # a program that quantizes then trains) keeps its own configuration.
         prev_platforms = jax.config.jax_platforms

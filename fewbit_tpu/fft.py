@@ -38,15 +38,14 @@ def _hadamard(n: int) -> np.ndarray:
 def fwht(x: jnp.ndarray, norm: str = "ortho") -> jnp.ndarray:
     """Walsh-Hadamard transform along axis 0 (rows); power-of-two length.
 
-    TPU-first formulation: instead of log2(N) sequential butterfly stages
-    (VPU-bound, N reshapes), the transform factors as a Kronecker product
-    ``H_N = H_a (x) H_b`` with ``a*b = N`` — two *matmuls* with small
-    constant Hadamard matrices that run on the MXU:
+    Instead of log2(N) sequential butterfly stages (N reshapes), the
+    transform factors as a Kronecker product ``H_N = H_a (x) H_b`` with
+    ``a*b = N`` — two *matmuls* with small constant Hadamard matrices that
+    run on the matrix units:
     ``(H_N X).reshape(a,b,d) = H_a @ (X.reshape(a,b,d) @_b H_b)``.
-    This is the structured transform behind the ``srht`` sketch — the
-    TPU-usable replacement for the reference's complex-FFT ``dft`` sketch
-    (``/root/reference/fewbit/functional/linear.py:130-148``), which this
-    backend cannot lower.
+    This is the structured transform behind the ``srht`` sketch — a
+    real-valued alternative to the reference's complex-FFT ``dft`` sketch
+    (``/root/reference/fewbit/functional/linear.py:130-148``).
     """
     n = x.shape[0]
     if n & (n - 1):

@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from fewbit_tpu.lut import store
 from fewbit_tpu.ops.activations import (ActivationSpec, compare_codes,
@@ -261,16 +262,13 @@ def stepwise(x: jax.Array,
 # ---------------------------------------------------------------------------
 # Continuous family: exact forward, LUT-quantised derivative.
 #
-# Each function may carry a second, kernel-safe forward (``*_kfwd``) built
-# only from primitives the Mosaic TPU compiler lowers (exp/log/tanh/
-# logistic/...): lax.erfc and log1p have no Pallas lowering, so GELU uses a
-# |eps| <= 1.5e-7 rational erf approximation (Abramowitz & Stegun 7.1.26)
-# and softplus the max/log/exp decomposition inside kernels, while the
-# non-kernel path keeps the libm-exact jax.nn forms.
+# The Triton route has no lowering for ``lax.erfc``, so the codec kernel
+# computes GELU from ``_erfc_f32``: the same float32 rational approximation,
+# coefficients and op order that XLA expands ``erfc`` into, so the kernel's
+# ``y`` agrees with ``jax.nn.gelu`` to the last bit or two.  Every other
+# forward lowers as written.
 # ---------------------------------------------------------------------------
 
-
-_SQRT_HALF = 0.7071067811865476
 
 # Bind the exact implementations at import time so the engine stays
 # self-consistent when fewbit_tpu.patch later monkey-patches jax.nn.
@@ -278,68 +276,46 @@ _JAX_GELU = jax.nn.gelu
 _JAX_SILU = jax.nn.silu
 _JAX_SIGMOID = jax.nn.sigmoid
 
-
-def _erf_poly(z: jax.Array) -> jax.Array:
-    a1, a2, a3, a4, a5 = (0.254829592, -0.284496736, 1.421413741,
-                          -1.453152027, 1.061405429)
-    p = 0.3275911
-    az = jnp.abs(z)
-    t = 1.0 / (1.0 + p * az)
-    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
-    y = 1.0 - poly * jnp.exp(-az * az)
-    return jnp.where(z >= 0, y, -y)
-
-
-def _softplus_safe(x: jax.Array) -> jax.Array:
-    return jnp.maximum(x, 0.0) + jnp.log(1.0 + jnp.exp(-jnp.abs(x)))
+_f32 = np.float32
+_ERF_T = tuple(_f32(c) for c in (
+    7.85386146e-05, -0.000801019371, 0.00518832775, -0.0268538129,
+    0.112835854, -0.37612626, 1.12837911))
+_ERFC_P = tuple(_f32(c) for c in (
+    0.0232682, -0.138703942, 0.368742466, -0.582473278, 0.621000469,
+    -0.494451523, 0.340488, -0.274112701, 0.563825965))
+_ERFC_R = tuple(_f32(c) for c in (
+    -10.477664, 12.9772, -7.49551868, 2.92101908, -1.01526523, 0.42184633,
+    -0.282076746, 0.564189494))
 
 
-def _expm1f(x: jax.Array) -> jax.Array:
-    return jnp.exp(x) - 1.0
+def _horner(t, coeffs):
+    acc = t * coeffs[0] + coeffs[1]
+    for c in coeffs[2:]:
+        acc = acc * t + c
+    return acc
+
+
+def _erfc_f32(x: jax.Array) -> jax.Array:
+    """float32 ``erfc`` as XLA expands it: ``1 - x T(x^2)`` for |x| < 1,
+    else ``exp(-x^2) / |x| * P|R(1 / x^2)`` reflected for x < 0."""
+    one, two = _f32(1), _f32(2)
+    ax = jnp.abs(x)
+    small = one - x * _horner(x * x, _ERF_T)
+    z = -(x * x)
+    q = one / (x * x)
+    tail = jnp.exp(z) * (one / ax) * jnp.where(
+        ax < two, _horner(q, _ERFC_P), _horner(q, _ERFC_R))
+    tail = jnp.where(z < _f32(-88.7228394), _f32(0), tail)
+    large = jnp.where(x < 0, two - tail, tail)
+    return jnp.where(ax < one, small, large)
 
 
 def _gelu_kfwd(x, args):
-    xf = x.astype(jnp.float32)
-    return 0.5 * xf * (1.0 + _erf_poly(xf * _SQRT_HALF))
-
-
-def _celu_kfwd(x, args):
-    (alpha,) = args
-    xf = x.astype(jnp.float32)
-    return jnp.where(xf > 0, xf,
-                     alpha * _expm1f(jnp.minimum(xf, 0.0) / alpha))
-
-
-def _elu_kfwd(x, args):
-    (alpha,) = args
-    xf = x.astype(jnp.float32)
-    return jnp.where(xf > 0, xf, alpha * _expm1f(jnp.minimum(xf, 0.0)))
-
-
-_SELU_ALPHA = 1.6732632423543772
-_SELU_SCALE = 1.0507009873554805
-
-
-def _selu_kfwd(x, args):
-    xf = x.astype(jnp.float32)
-    return _SELU_SCALE * jnp.where(
-        xf > 0, xf, _SELU_ALPHA * _expm1f(jnp.minimum(xf, 0.0)))
-
-
-def _logsigmoid_kfwd(x, args):
-    return -_softplus_safe(-x.astype(jnp.float32))
-
-
-def _mish_kfwd(x, args):
-    xf = x.astype(jnp.float32)
-    return xf * jnp.tanh(_softplus_safe(xf))
-
-
-def _softplus_kfwd(x, args):
-    beta, thresh = args
-    xf = x.astype(jnp.float32)
-    scaled = xf * beta
-    return jnp.where(scaled > thresh, xf, _softplus_safe(scaled) / beta)
+    """``jax.nn.gelu(x, approximate=False)`` in its own op order and dtypes:
+    a bfloat16 input rounds after each op, and ``erfc`` runs in float32."""
+    sqrt_half = np.sqrt(0.5).astype(x.dtype)
+    e = _erfc_f32(((-x) * sqrt_half).astype(jnp.float32)).astype(x.dtype)
+    return np.asarray(0.5, x.dtype) * x * e
 
 
 def _resolve_lut(name: str, bits: Optional[int], borders, values):
@@ -367,17 +343,6 @@ def _resolve_lut(name: str, bits: Optional[int], borders, values):
     return jnp.asarray(b), jnp.asarray(v), nbits
 
 
-_KERNEL_FWD = {
-    "gelu": _gelu_kfwd,
-    "celu": _celu_kfwd,
-    "elu": _elu_kfwd,
-    "selu": _selu_kfwd,
-    "logsigmoid": _logsigmoid_kfwd,
-    "mish": _mish_kfwd,
-    "softplus": _softplus_kfwd,
-}
-
-
 def _continuous_call(name, fwd, x, args, bits, borders, values):
     spec, b, v = resolve_activation(name, bits=bits, borders=borders,
                                     values=values, args=args, fwd=fwd)
@@ -399,7 +364,8 @@ def resolve_activation(name: str, bits: Optional[int] = None, borders=None,
         spec = ActivationSpec(name=name, bits=nbits, fwd=fwd,
                               codes=compare_codes, args=args,
                               n_borders=int(b.shape[0]),
-                              fwd_kernel=_KERNEL_FWD.get(name))
+                              fwd_kernel=_gelu_kfwd if name == "gelu"
+                              else None)
         return spec, b, v
     # (fwd, predicate, default args, level below, level above)
     builders = {

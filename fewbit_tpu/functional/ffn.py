@@ -1,31 +1,25 @@
-"""Fully-fused memory-efficient FFN block: up projection + few-bit
-activation + down projection as ONE ``custom_vjp``.
+"""The whole few-bit FFN block as one op: up projection + few-bit
+activation + down projection in one ``custom_vjp``.
 
 The transformer FFN pair is where both of the reference's techniques meet
 (its experiments patch the FFN GELU *and* convert the FFN linears,
 ``/root/reference/notebooks/few-bit-backward/exp-fine-tuning-glue.py:272-303``,
-``notebooks/randomized-backward/exp-fine-tuning-glue.py:200-210``) — but as
-separate ops each extra residual costs a full HBM pass over an (N, M)
-tensor, which on a bandwidth-bound TPU step is exactly the overhead the
-<3% north star forbids.  This op computes every sketch in the epilogue of a
-kernel that already holds the tensor in VMEM:
+``notebooks/randomized-backward/exp-fine-tuning-glue.py:200-210``).  As one
+op, no ``(N, M)`` tensor of the block survives the forward pass:
 
-* **forward** (one Pallas megakernel,
-  :func:`fewbit_tpu.ops.pallas_kernels.fused_dense_act_sketch`):
-  ``y = act(x @ w_up + b_up)`` with the pre-activation never reaching HBM,
-  emitting the packed few-bit codes AND ``countsketch(y)`` — the residual
-  the down projection's weight gradient needs; ``y`` itself is written
-  bfloat16 (it only feeds the down matmul's MXU pass, which is bf16 anyway).
-* **backward** (one Pallas kernel,
-  :func:`fewbit_tpu.ops.pallas_kernels.fused_matmul_lut_backward`):
-  ``dz = levels[codes] * (g @ w_down^T)`` — the gradient matmul, the LUT
-  dequant, ``countsketch(dz)`` (for the up projection's weight gradient) and
-  ``db_up = sum dz``, all in one pass; ``dz`` is written bfloat16 (it only
-  feeds the two remaining gradient matmuls).
+* **forward**: ``y = act(x @ w_up + b_up)`` through the codec
+  (:func:`fewbit_tpu.ops.codec.forward`), which also packs the few-bit
+  codes of the pre-activation; then ``countsketch(x)`` and
+  ``countsketch(y)``, the residuals of the two weight gradients;
+* **backward**: ``dz = levels[codes] * (g @ w_down^T)``
+  (:func:`fewbit_tpu.ops.codec.backward`), ``countsketch(dz)`` for the up
+  projection's weight gradient, and ``db_up = sum dz``.
+
+The matrix products are XLA's (the vendor library's on a GPU).
 
 Residuals for the whole block: ``countsketch(x)``, packed codes
 (``bits/8`` B per pre-activation element), ``countsketch(y)``, and the two
-weights — no (N, M) tensor survives the forward pass.
+weights.
 
 Weight-gradient estimators (unbiased; see ``tests/test_ffn.py``):
 ``dW_up = sk(x)^T sk(dz)`` with the up key's signs, ``dW_down =
@@ -33,7 +27,7 @@ sk(y)^T sk(g)`` with the down key's signs.  The stride-partition countsketch
 ``P`` satisfies ``E[P^T P] = I`` exactly (sign independence makes every
 cross term vanish), so no normalisation factor is needed.  Both sides of
 each estimator share one sign vector derived from the op's PRNG key — the
-TPU-idiomatic replacement for the reference's generator-state save/restore
+functional replacement for the reference's generator-state save/restore
 (``/root/reference/fewbit/functional/linear.py:100-105,158-160``).
 """
 
@@ -52,9 +46,9 @@ from fewbit_tpu.functional.activations import resolve_activation
 from fewbit_tpu.functional.linear import (_countsketch_partition,
                                           _countsketch_signed,
                                           _dot_acc_f32 as _dot_f32,
-                                          _int_zero_cot, calc_proj_dim)
-from fewbit_tpu.ops.activations import _use_pallas, apply_lut
-from fewbit_tpu.ops.bitpack import pack_codes, unpack_codes
+                                          _int_zero_cot, calc_proj_dim,
+                                          sketch_dtype)
+from fewbit_tpu.ops import codec
 
 __all__ = ("fewbit_ffn",)
 
@@ -72,37 +66,9 @@ def _signs(key: jax.Array, n: int) -> jax.Array:
 
 
 def _keff(n: int, k: int) -> int:
-    """Bucket count shared by the jnp and Pallas paths: kernel-aligned when
-    possible so both paths produce identical sketches."""
-    from fewbit_tpu.ops.pallas_kernels import countsketch_aligned_keff
-
-    aligned = countsketch_aligned_keff(n, k)
-    if aligned is not None:
-        return aligned
+    """Bucket count of the stride-partition countsketch."""
     part = _countsketch_partition(n, k)
     return part[1] if part is not None else min(k, n)
-
-
-def _pallas_ok(cfg, n: int, kdim: int, m: int, h: int, dtype) -> bool:
-    from fewbit_tpu.ops import pallas_kernels as pk
-    from fewbit_tpu.ops.activations import compare_codes
-
-    if not _use_pallas():
-        return False
-    if dtype not in (jnp.float32.dtype, jnp.bfloat16.dtype):
-        return False
-    spec = cfg.spec
-    if spec.bits > 6:
-        return False
-    if (spec.n_borders > 0 and spec.codes is not compare_codes
-            and spec.name != "stepwise"):
-        return False
-    if n % pk.FFN_BN or m % pk.FFN_BM or kdim % 128 or h % 128:
-        return False
-    if pk._choose_bk(kdim) is None or pk._choose_bk(h) is None:
-        return False
-    k_eff = pk.countsketch_aligned_keff(n, cfg.k_proj)
-    return k_eff is not None
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(0,))
@@ -122,8 +88,7 @@ def _ffn(cfg: _FFNConfig, x, w_up, b_up, w_down, b_down, key, borders,
 def _ffn_fwd(cfg, x, w_up, b_up, w_down, b_down, key, borders, levels):
     spec = cfg.spec
     x2 = x.reshape(-1, x.shape[-1])
-    n, kdim = x2.shape
-    m = w_up.shape[-1]
+    n = x2.shape[0]
     h = w_down.shape[-1]
     key_up = jax.random.fold_in(key, 0)
     key_down = jax.random.fold_in(key, 1)
@@ -131,31 +96,12 @@ def _ffn_fwd(cfg, x, w_up, b_up, w_down, b_down, key, borders, levels):
     sig_down = _signs(key_down, n)
     k_eff = _keff(n, cfg.k_proj)
 
-    outs = None
-    if _pallas_ok(cfg, n, kdim, m, h, x.dtype):
-        from fewbit_tpu.ops import pallas_kernels as pk
-
-        # Under interpret mode the kernels skip the bf16 MXU cast so the
-        # jnp-parity tests compare like against like; mirror that here.
-        y_dtype = (jnp.bfloat16 if x.dtype == jnp.float32.dtype
-                   and not pk._interpret_mode() else x.dtype)
-        # The kernel CAN also emit the x-sketch in the same pass
-        # (sigma_x=...), but at headline shapes the (k_eff, kdim)
-        # VMEM-resident accumulator costs +4.4% model step time vs the
-        # separate jnp pass over the narrow x (A/B-measured on chip,
-        # docs/BENCHMARKS.md) — so the x-sketch stays a jnp pass here.
-        outs = pk.fused_dense_act_sketch(spec, x2, w_up, b_up, borders,
-                                         sig_down, k_eff, y_dtype=y_dtype)
-    if outs is None:
-        z = _dot_f32(x2, w_up)
-        if b_up is not None:
-            z = z + b_up
-        codes = spec.codes(z, borders, spec.args)
-        packed = pack_codes(codes.reshape(-1), spec.bits)
-        y2 = spec.fwd(z, spec.args).astype(x.dtype)
-        sk_y = _countsketch_signed(y2, sig_down, k_eff)
-    else:
-        y2, packed, sk_y = outs
+    z = _dot_f32(x2, w_up)
+    if b_up is not None:
+        z = z + b_up
+    y2, packed = codec.forward(spec, z, borders)
+    y2 = y2.astype(x.dtype)
+    sk_y = _countsketch_signed(y2, sig_down, k_eff)
     sk_x = _countsketch_signed(x2, sig_up, k_eff)
 
     out = _dot_f32(y2, w_down.astype(y2.dtype))
@@ -169,7 +115,6 @@ def _ffn_bwd(cfg, residual, g):
     spec = cfg.spec
     packed, sk_x, sk_y, w_up, w_down, key, levels = residual
     h = w_down.shape[-1]
-    m = w_up.shape[-1]
     kdim = w_up.shape[0]
     g2 = g.reshape(-1, h)
     n = g2.shape[0]
@@ -183,43 +128,14 @@ def _ffn_bwd(cfg, residual, g):
     sk_g = _countsketch_signed(g2, sig_down, k_eff)
     dw_down = _dot_f32(sk_y.T, sk_g).astype(w_down.dtype)
 
-    out = None
-    if packed.ndim == 3 and _pallas_ok(cfg, n, kdim, m, h, g2.dtype):
-        from fewbit_tpu.ops import pallas_kernels as pk
-
-        # Same interpret-mode guard as the forward: bf16 is an MXU choice,
-        # not part of the op's semantics, so parity tests stay f32.
-        to_bf16 = (g2.dtype == jnp.float32.dtype
-                   and not pk._interpret_mode())
-        gb = g2.astype(jnp.bfloat16) if to_bf16 else g2
-        wt = w_down.T.astype(gb.dtype)
-        dz_dtype = jnp.bfloat16 if to_bf16 else g2.dtype
-        # sk_dtype keys on the MODEL dtype (g2 may be pre-cast to bf16 for
-        # the MXU on f32 models) so the dw_up contraction against the
-        # residual's sk_x stays dtype-consistent.
-        out = pk.fused_matmul_lut_backward(spec, packed, levels, gb, wt,
-                                           sig_up, k_eff, dz_dtype=dz_dtype,
-                                           sk_dtype=pk.sketch_dtype(g2.dtype))
-    if out is None:
-        if packed.ndim == 3:
-            from fewbit_tpu.ops.pallas_kernels import unpack_block_layout
-
-            codes = unpack_block_layout(packed, spec.bits, (n, m))
-        else:
-            codes = unpack_codes(packed, spec.bits, n * m).reshape(n, m)
-        mult = apply_lut(codes, levels, spec.bits)
-        dz32 = mult * _dot_f32(g2, w_down.T.astype(g2.dtype))
-        from fewbit_tpu.ops.pallas_kernels import sketch_dtype
-
-        # dz32 is f32 here regardless of model dtype; sketch storage still
-        # follows the MODEL-dtype policy so fused/fallback residuals agree.
-        sk_dz = _countsketch_signed(dz32, sig_up, k_eff,
-                                    out_dtype=sketch_dtype(g2.dtype))
-        db_up = dz32.sum(axis=0)
-        dz = dz32.astype(g2.dtype)
-    else:
-        dz, sk_dz, db_up2 = out
-        db_up = db_up2[0]
+    # dz32 is f32 whatever the model dtype; sketch storage follows the
+    # model dtype (sketch_dtype).
+    dz32 = codec.backward(spec, packed, levels,
+                          _dot_f32(g2, w_down.T.astype(g2.dtype)))
+    sk_dz = _countsketch_signed(dz32, sig_up, k_eff,
+                                out_dtype=sketch_dtype(g2.dtype))
+    db_up = dz32.sum(axis=0)
+    dz = dz32.astype(g2.dtype)
 
     dw_up = _dot_f32(sk_x.T, sk_dz).astype(w_up.dtype)
     dx = _dot_f32(dz, w_up.T.astype(dz.dtype))
@@ -258,8 +174,8 @@ def fewbit_ffn(x: jax.Array,
     :param key: PRNG key; both weight-gradient sketches derive their shared
         forward/backward signs from folds of it.
     :param proj_dim_ratio: sketch size as a fraction of the flattened batch
-        (the kernel path may round the bucket count UP for tile alignment —
-        never down).
+        (the stride partition may round the bucket count UP — never
+        down).
     """
     spec, b_arr, v_arr = resolve_activation(activation, bits=bits,
                                             borders=borders, values=values,

@@ -1,21 +1,20 @@
-"""Fused dense + few-bit activation: the memory-optimal FFN prefix.
+"""Dense + few-bit activation as one op: the memory-lean FFN prefix.
 
 ``fewbit_dense_act(x, w, b) = act(x @ w + b)`` as one ``custom_vjp``:
 
-* **forward** (TPU): one Pallas kernel computes the matmul on the MXU and
-  applies activation + border-compare + bit-plane pack in the epilogue — the
-  pre-activation ``z`` never exists in HBM
-  (:func:`fewbit_tpu.ops.pallas_kernels.fused_dense_act`);
+* **forward**: the matmul (XLA's, on the vendor library), then the codec
+  (:func:`fewbit_tpu.ops.codec.forward`) computes the activation and packs
+  the interval codes of the pre-activation ``z``;
 * **residuals**: packed codes (``bits/8`` B per element of ``z``), the
   weight, and either the exact input or — with a sketch configured — only a
   ``(k, K)`` random sketch of it;
-* **backward**: ``dz = g * levels[codes]`` (fused unpack+LUT kernel), then
-  ``dx = dz @ w^T`` and ``dw = sketch(x)^T``-paired estimate (or exact
-  ``x^T dz``), ``db = sum(dz)``.
+* **backward**: ``dz = g * levels[codes]`` (:func:`fewbit_tpu.ops.codec.
+  backward`), then ``dx = dz @ w^T`` and ``dw = sketch(x)^T``-paired
+  estimate (or exact ``x^T dz``), ``db = sum(dz)``.
 
-Where a vanilla XLA dense+gelu saves the full fp32 pre-activation (or
-recomputes it from a saved input), this op's extra storage for the whole
-block is ``bits``/32 of one activation tensor plus an optional small sketch.
+Where a vanilla dense+gelu saves the full pre-activation (or recomputes it
+from a saved input), this op's extra storage for the whole block is
+``bits``/32 of one activation tensor plus an optional small sketch.
 """
 
 from __future__ import annotations
@@ -33,8 +32,7 @@ from fewbit_tpu.functional.activations import resolve_activation
 from fewbit_tpu.functional.linear import (MATMUL_KINDS, _GRPConfig,
                                           _int_zero_cot, _sketch,
                                           calc_proj_dim)
-from fewbit_tpu.ops.activations import apply_lut, compare_codes
-from fewbit_tpu.ops.bitpack import pack_codes, unpack_codes
+from fewbit_tpu.ops import codec
 
 __all__ = ("fewbit_dense_act",)
 
@@ -44,12 +42,6 @@ class _FusedConfig:
     spec: object              # ActivationSpec (hashable dataclass)
     grp: Optional[_GRPConfig]  # weight-grad sketch; None = exact
     has_bias: bool
-
-
-def _use_pallas() -> bool:
-    from fewbit_tpu.ops.activations import _use_pallas as f
-
-    return f()
 
 
 def _plain_forward(cfg, x2, w, b):
@@ -70,21 +62,11 @@ def _fused(cfg: _FusedConfig, x, w, b, key, borders, levels):
 def _fused_fwd(cfg, x, w, b, key, borders, levels):
     spec = cfg.spec
     x2 = x.reshape(-1, x.shape[-1])
-    n, kdim = x2.shape
     m = w.shape[-1]
 
-    packed = None
-    if _use_pallas():
-        from fewbit_tpu.ops import pallas_kernels
-
-        out = pallas_kernels.fused_dense_act(spec, x2, w, b, borders)
-        if out is not None:
-            y2, packed = out
-    if packed is None:
-        z = _plain_forward(cfg, x2, w, b)
-        y2 = spec.fwd(z, spec.args).astype(x.dtype)
-        codes = spec.codes(z, borders, spec.args)
-        packed = pack_codes(codes.reshape(-1), spec.bits)
+    z = _plain_forward(cfg, x2, w, b)
+    y2, packed = codec.forward(spec, z, borders)
+    y2 = y2.astype(x.dtype)
 
     x_saved = (_sketch(cfg.grp, key, x2, normalise=True)
                if cfg.grp is not None else x2)
@@ -98,20 +80,7 @@ def _fused_bwd(cfg, residual, g):
     m = w.shape[-1]
     g2 = g.reshape(-1, m)
 
-    dz = None
-    if _use_pallas() and packed.ndim == 3:
-        from fewbit_tpu.ops import pallas_kernels
-
-        dz = pallas_kernels.fused_backward(spec, packed, levels, g2)
-    if dz is None:
-        if packed.ndim == 3:
-            from fewbit_tpu.ops.pallas_kernels import unpack_block_layout
-
-            codes = unpack_block_layout(packed, spec.bits, g2.shape)
-        else:
-            codes = unpack_codes(packed, spec.bits, g2.size).reshape(g2.shape)
-        mult = apply_lut(codes, levels, spec.bits)
-        dz = (mult * g2.astype(mult.dtype)).astype(g2.dtype)
+    dz = codec.backward(spec, packed, levels, g2)
 
     dx = (dz @ w.T).reshape(*g.shape[:-1], w.shape[0]).astype(g.dtype)
     if cfg.grp is not None:

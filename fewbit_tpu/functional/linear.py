@@ -8,7 +8,7 @@ backward pass re-materialises the *same* projection of the output gradient
 and estimates ``grad_W = (P g)^T (P x) / normalisation``, which is unbiased
 because ``E[P^T P / c] = I``.
 
-TPU-idiomatic randomness: the shared forward/backward projection comes from
+Functional randomness: the shared forward/backward projection comes from
 an explicit ``jax.random`` key saved in the residual (a few bytes), replacing
 the reference's save-and-restore of a mutable ``torch.Generator`` state blob
 (``/root/reference/fewbit/functional/linear.py:100-105,158-160``).  Under
@@ -26,11 +26,10 @@ Sketch types (reference parity: ``functional/linear.py:113-148``):
   The ``N/k`` factor here is the unbiased one — verified by the Monte-Carlo
   tests in ``tests/test_linear.py``.)
 * ``srht`` — subsampled randomized Hadamard transform (random signs +
-  Kronecker-factored Walsh-Hadamard as two MXU matmuls + row subsampling).
-  The structured sketch that actually lowers on TPU (dct/dft need a complex
-  FFT this backend lacks) — net-new relative to the reference.
+  Kronecker-factored Walsh-Hadamard as two matmuls + row subsampling) —
+  net-new relative to the reference; real-valued, no FFT needed.
 * ``countsketch`` — signed bucket sum over a fixed stride partition; one
-  O(N d) memory pass, no FLOPs on the MXU.  TPU-recommended default.
+  O(N d) memory pass, no matmul FLOPs.  The recommended kind.
 
 ``linear_crs`` implements column-row sampling: backward keeps ``nopairs``
 input *feature columns* sampled uniformly with replacement
@@ -42,6 +41,8 @@ formulation (duplicates kept and scatter-added) replacing the dynamic
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from functools import partial
 from typing import Optional
 
@@ -57,6 +58,31 @@ __all__ = ("linear", "linear_crs", "linear_grp", "linear_grp_native",
 
 MATMUL_KINDS = ("gaussian", "rademacher", "dct", "dft", "countsketch",
                 "srht")
+
+
+_FALLBACK_WARNING = (
+    "{owner}: no 'sketch' RNG was provided; falling back to a constant key. "
+    "Every training step will reuse the SAME random sketch signs, so the "
+    "weight-gradient noise is perfectly correlated across steps and will "
+    "not average out.  Pass rngs={{'sketch': key}} (fresh per step) when "
+    "training; this fallback is only safe for inference.  Set "
+    "FEWBIT_TPU_STRICT_SKETCH=1 to make this an error.")
+
+
+def fallback_sketch_key(owner: str, stacklevel: int = 3) -> jax.Array:
+    """The constant sketch key for callers that were given no sketch RNG.
+
+    The sketched weight-gradient estimators are unbiased only over fresh
+    random signs, so this warns (or, under ``FEWBIT_TPU_STRICT_SKETCH=1``,
+    raises): inference without RNGs must still work — the sketch only
+    affects gradients — but training this way would freeze the sketch.  The
+    reference hides the same hazard inside an optional ``generator``
+    argument (``/root/reference/fewbit/modules/linear.py:58-76``)."""
+    msg = _FALLBACK_WARNING.format(owner=owner)
+    if os.environ.get("FEWBIT_TPU_STRICT_SKETCH") == "1":
+        raise RuntimeError(msg)
+    warnings.warn(msg, stacklevel=stacklevel)
+    return jax.random.key(0)
 
 
 def calc_proj_dim(ndim: int,
@@ -101,7 +127,7 @@ def _int_zero_cot(a: jax.Array):
 
 def _dot_acc_f32(a: jax.Array, b: jax.Array) -> jax.Array:
     """``a @ b`` with operand-dtype promotion and an f32 accumulator —
-    the sketch-contraction matmul (bf16 sketches hit the MXU natively;
+    the sketch-contraction matmul (bf16 sketches use the bf16 tensor cores;
     the accumulation error stays f32-bounded)."""
     dt = jnp.promote_types(a.dtype, b.dtype)
     return jax.lax.dot_general(a.astype(dt), b.astype(dt),
@@ -109,16 +135,28 @@ def _dot_acc_f32(a: jax.Array, b: jax.Array) -> jax.Array:
                                preferred_element_type=jnp.float32)
 
 
+def sketch_dtype(dtype) -> jnp.dtype:
+    """Storage dtype for countsketch residuals, keyed on the MODEL dtype.
+
+    bf16 models store bf16 sketches: the sketched weight-gradient estimator
+    carries sampling variance ~ ||x||^2 ||g||^2 / k_eff, orders of magnitude
+    above bf16's 2^-8 rounding, so the cast costs no accuracy while it
+    halves the residual memory and the sketch's memory traffic.  f32 models
+    keep f32 sketches.  Accumulation stays f32.
+    """
+    return (jnp.bfloat16.dtype if jnp.dtype(dtype) == jnp.bfloat16.dtype
+            else jnp.float32.dtype)
+
+
 def _countsketch_partition(n: int, k: int):
-    """Pick a tile-friendly stride partition for the countsketch.
+    """Pick an exact stride partition for the countsketch.
 
     Returns ``(block, k_eff)`` with ``block * k_eff == n`` and ``k_eff >= k``
     (never *less* accurate than requested), or ``None`` when no exact
     partition exists within a 2x bucket budget.  An exact partition lets the
-    bucket reduction lower to one aligned ``reshape(block, k_eff, d).sum(0)``
-    — on TPU the inexact variant (slice + tail fold, with a bucket count that
-    is not a multiple of the 8-row sublane tile) costs 2-3x the HBM-bandwidth
-    bound, which dominated the whole RandomizedLinear step overhead.
+    bucket reduction lower to one ``reshape(block, k_eff, d).sum(0)``
+    instead of a slice plus a folded tail; a bucket count that is a multiple
+    of 8 keeps the reshape aligned.
     """
     if k >= n:
         return 1, n
@@ -136,15 +174,10 @@ def _countsketch_partition(n: int, k: int):
 def _countsketch_signed(mat: jax.Array, sigma: jax.Array, k_eff: int,
                         out_dtype=None) -> jax.Array:
     """Signed bucket sum with bucket = row % k_eff — the stride partition
-    shared by every countsketch variant (jnp and Pallas), so sketches from
-    any path contract bucket-for-bucket against each other.
+    shared by every countsketch, so the forward and backward sketches
+    contract bucket-for-bucket against each other.
 
-    Storage follows :func:`fewbit_tpu.ops.pallas_kernels.sketch_dtype`
-    (bf16 sketches for bf16 models — halves residual memory and sketch HBM
-    traffic; the estimator's sampling variance dwarfs the cast error).
-    Accumulation is f32 regardless."""
-    from fewbit_tpu.ops.pallas_kernels import sketch_dtype
-
+    Storage follows :func:`sketch_dtype`; accumulation is f32."""
     n, d = mat.shape
     if out_dtype is None:
         out_dtype = sketch_dtype(mat.dtype)
@@ -165,8 +198,7 @@ def _dense_proj_chunks(n: int, k: int) -> int:
     """Row-chunk size for dense projections: the transient (k, chunk)
     projection block is generated on the fly and freed chunk by chunk, so
     peak memory stays ~32 MiB instead of the reference's full (k, N) matrix
-    (859 MiB at batch 64 x seq 512, ratio 0.2 — enough to OOM a 16 GiB
-    chip)."""
+    (859 MiB at batch 64 x seq 512, ratio 0.2)."""
     target = (32 << 20) // (4 * max(k, 1))
     return max(256, min(n, target))
 
@@ -218,7 +250,7 @@ def _sketch(cfg: _GRPConfig, key: jax.Array, mat: jax.Array,
         # whole projection is one fused multiply + reshape-sum — a single
         # O(N d) memory pass instead of the O(k N d) FLOPs of a dense
         # sketch.  The stride-k partition also mixes tokens from different
-        # sequence positions into each bucket.  TPU-recommended kind.
+        # sequence positions into each bucket.  The recommended kind.
         signs = (jax.random.bernoulli(key, 0.5, (n,)).astype(mat.dtype)
                  * 2.0 - 1.0)
         part = _countsketch_partition(n, k)
@@ -226,11 +258,10 @@ def _sketch(cfg: _GRPConfig, key: jax.Array, mat: jax.Array,
         return _countsketch_signed(mat, signs, k_eff)
     if cfg.matmul == "srht":
         # Subsampled Randomized Hadamard Transform: rows of H_orth D mat,
-        # D = random signs, H the Kronecker-factored Walsh-Hadamard (two MXU
-        # matmuls — see fewbit_tpu.fft.fwht).  The TPU-usable structured
-        # sketch: the reference's dft/dct variants need a complex FFT this
-        # backend cannot lower, and unlike plain dct-row-sampling the sign
-        # randomisation D makes the estimator robust to coherent inputs.
+        # D = random signs, H the Kronecker-factored Walsh-Hadamard (two
+        # matmuls — see fewbit_tpu.fft.fwht).  Unlike plain dct-row-sampling
+        # the sign randomisation D makes the estimator robust to coherent
+        # inputs.
         # Unbiasedness: E[S^T S] = (k/n_p) I under uniform row sampling with
         # replacement, and D H^T H D = I, so scaling by n_p/k gives
         # E[(P g)^T (P x) * n_p/k] = g^T x.
@@ -263,31 +294,6 @@ def _sketch(cfg: _GRPConfig, key: jax.Array, mat: jax.Array,
     raise ValueError(f"unknown matmul kind: {cfg.matmul!r}")
 
 
-def _fused_cs_keff(cfg: _GRPConfig, n: int, kdim: int, m: int,
-                   dtype) -> Optional[int]:
-    """Aligned bucket count when BOTH directions of the fused
-    matmul+input-sketch kernel are in envelope, else None.
-
-    Must be a pure function of static shapes so forward and backward make
-    the same decision: the forward stores sketch(x) with this partition and
-    the backward's sketch(dy) must contract against it bucket-for-bucket.
-    """
-    if cfg.matmul != "countsketch":
-        return None
-    from fewbit_tpu.ops.activations import _use_pallas
-
-    if not _use_pallas():
-        return None
-    from fewbit_tpu.ops import pallas_kernels as pk
-
-    k = cfg.proj_features
-    ke_fwd = pk.matmul_sketch_keff(n, kdim, m, k, dtype)
-    ke_bwd = pk.matmul_sketch_keff(n, m, kdim, k, dtype)
-    if ke_fwd is None or ke_fwd != ke_bwd:
-        return None
-    return ke_fwd
-
-
 def _cs_signs(key: jax.Array, n: int, dtype) -> jax.Array:
     # The SAME sign draw the jnp countsketch in _sketch uses — forward and
     # backward projections must share it for the estimator to be unbiased.
@@ -307,24 +313,8 @@ def _linear_grp_core(cfg: _GRPConfig, x, kernel, bias, key):
 
 
 def _linear_grp_core_fwd(cfg, x, kernel, bias, key):
-    x2 = x.reshape(-1, x.shape[-1])
-    k_eff = _fused_cs_keff(cfg, x2.shape[0], kernel.shape[0],
-                           kernel.shape[1], x.dtype)
-    if k_eff is not None:
-        # Fused path: the sketch rides the matmul's own read of x instead
-        # of a second HBM pass (ops/pallas_kernels.py:
-        # fused_matmul_input_sketch).  Stride partition r -> r mod k_eff
-        # with k_eff >= cfg.proj_features: never less accurate than asked.
-        from fewbit_tpu.ops.pallas_kernels import fused_matmul_input_sketch
-
-        sigma = _cs_signs(key, x2.shape[0], jnp.float32)
-        out = fused_matmul_input_sketch(x2, kernel, bias, sigma, k_eff)
-        if out is not None:
-            y2, sketch = out
-            y = y2.reshape(*x.shape[:-1], kernel.shape[1])
-            return y, (sketch, kernel, key)
     y = _linear_grp_core(cfg, x, kernel, bias, key)
-    sketch = _sketch(cfg, key, x2, normalise=True)
+    sketch = _sketch(cfg, key, x.reshape(-1, x.shape[-1]), normalise=True)
     return y, (sketch, kernel, key)
 
 
@@ -333,31 +323,10 @@ def _linear_grp_core_bwd(cfg, residual, g):
     g2 = g.reshape(-1, g.shape[-1])
     if cfg.matmul == "countsketch":
         # The backward contracts AGAINST the forward's sketch, so its bucket
-        # partition is whatever the forward stored — read k_eff off the
-        # residual's static shape instead of re-deriving the fused/unfused
-        # decision (which keys on dtype and an env read and could in
-        # principle diverge between the two traces).
+        # partition is whatever the forward stored: read k_eff off the
+        # residual's static shape.
         k_eff = sketch.shape[0]
         sigma = _cs_signs(key, g2.shape[0], jnp.float32)
-        out = None
-        if _fused_cs_keff(cfg, g2.shape[0], kernel.shape[0],
-                          kernel.shape[1], g.dtype) == k_eff:
-            from fewbit_tpu.ops.pallas_kernels import \
-                fused_matmul_input_sketch
-
-            out = fused_matmul_input_sketch(g2, kernel.T, None, sigma, k_eff,
-                                            want_colsum=cfg.has_bias)
-        if out is not None:
-            if cfg.has_bias:
-                grad_x2, g_proj, grad_b = out
-            else:
-                grad_x2, g_proj = out
-                grad_b = None
-            grad_x = grad_x2.reshape(*g.shape[:-1], kernel.shape[0])
-            grad_k = _dot_acc_f32(sketch.T, g_proj).astype(kernel.dtype)
-            return (grad_x.astype(g.dtype), grad_k,
-                    grad_b.astype(g.dtype) if grad_b is not None else None,
-                    _int_zero_cot(key))
         grad_x = (g2 @ kernel.T).reshape(*g.shape[:-1], kernel.shape[0])
         g_proj = _countsketch_signed(g2, sigma, k_eff)
         grad_k = _dot_acc_f32(sketch.T, g_proj).astype(kernel.dtype)

@@ -1,6 +1,6 @@
 """Registry of stepwise derivative LUTs (borders + levels) per activation.
 
-TPU-idiomatic take on the reference's ``StepwiseStore``
+A JAX take on the reference's ``StepwiseStore``
 (``/root/reference/fewbit/functional/activations.py:24-86``): instead of a
 per-device/per-dtype tensor cache, the store holds plain numpy arrays; they
 are embedded as compile-time constants when a jitted function traces, so XLA

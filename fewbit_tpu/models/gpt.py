@@ -7,8 +7,8 @@ memory-efficient training path is first-class config, identical in spirit to
 :mod:`fewbit_tpu.models.roberta`:
 
 * ``gelu_bits`` — the FFN activation saves a packed ``bits``/8-byte code
-  residual instead of the fp32 pre-activation (fused dense+act Pallas
-  megakernel on TPU);
+  residual instead of the fp32 pre-activation (the fused dense + activation
+  op);
 * ``proj_dim_ratio`` — every projection becomes a RandomizedDense whose VJP
   saves a sketch of its input along the flattened batch*seq axis.  Causal
   LMs train on full sequences, so the batch*seq axis is large and the
@@ -24,7 +24,7 @@ the dp x tp machinery works for both families without modification.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional
 
 import flax.linen as nn
 import jax
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 from fewbit_tpu import functional as F
 from fewbit_tpu.modules.linear import RandomizedDense
+from fewbit_tpu.parallel.tp import tp_copy, tp_sum
 
 __all__ = ("GPTConfig", "GPTModel", "GPTForCausalLM")
 
@@ -58,29 +59,8 @@ class GPTConfig:
     # fewbit_tpu.parallel.tp — the same name rules shard this model).
     tp_axis: Optional[str] = None
     tp_size: int = 1
-    # Pallas TPU flash attention (causal); off-TPU silently uses the
-    # standard masked path.  The flash kernel has no dropout inside, so
-    # flash_attention=True requires attention_dropout == 0 (enforced below,
-    # matching RobertaConfig).  "auto" enables it exactly where measured to
-    # win: TPU, seq >= models.flash.FLASH_AUTO_MIN_SEQ, dropout == 0.
-    flash_attention: Any = False  # False | True | "auto"
-    # Explicit (block_q, block_kv) for the flash kernel; None consults the
-    # per-seq tuned table in models/flash.py (kernel defaults otherwise).
-    flash_blocks: Optional[Tuple[int, int]] = None
     # GPT-2 ties the LM head to the token embedding.
     tie_lm_head: bool = True
-
-    def __post_init__(self):
-        from fewbit_tpu.models.flash import validate_flash_setting
-
-        validate_flash_setting(self.flash_attention)
-        if self.flash_attention is True and self.attention_dropout > 0:
-            raise ValueError(
-                "flash_attention=True cannot apply attention dropout (the "
-                "flash kernel never materialises attention probabilities); "
-                "set attention_dropout=0.0 explicitly to opt in, or use "
-                "flash_attention='auto' to keep the standard path when "
-                "dropout is on")
 
     @property
     def head_dim(self) -> int:
@@ -98,11 +78,8 @@ def _dense(cfg: GPTConfig, features: int, name: str,
                     name=name)
 
 
-def _tp_psum(x: jax.Array, axis: str) -> jax.Array:
-    try:
-        return jax.lax.psum(x, axis)
-    except NameError:  # outside shard_map (abstract template construction)
-        return x
+def _enter_tp(cfg: GPTConfig, x: jax.Array) -> jax.Array:
+    return x if cfg.tp_axis is None else tp_copy(x, cfg.tp_axis)
 
 
 class GPTSelfAttention(nn.Module):
@@ -114,6 +91,7 @@ class GPTSelfAttention(nn.Module):
         b, s, h = x.shape
         heads = cfg.num_heads // cfg.tp_size  # local heads under TP
         width = heads * cfg.head_dim
+        x = _enter_tp(cfg, x)
         q = _dense(cfg, width, "query")(x)
         k = _dense(cfg, width, "key")(x)
         v = _dense(cfg, width, "value")(x)
@@ -124,40 +102,23 @@ class GPTSelfAttention(nn.Module):
         q, k, v = split(q), split(k), split(v)
         scale = cfg.head_dim ** -0.5
 
-        from fewbit_tpu.models.flash import resolve_block_sizes, use_flash
-
-        if use_flash(cfg.flash_attention, s, cfg.attention_dropout,
-                     deterministic=deterministic):
-            from jax.experimental.pallas.ops.tpu import flash_attention as fa
-
-            seg = None
-            if attention_mask is not None:
-                ids = attention_mask.astype(jnp.int32)
-                seg = fa.SegmentIds(q=ids, kv=ids)
-            ctx = fa.flash_attention(
-                q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-                v.transpose(0, 2, 1, 3), segment_ids=seg, causal=True,
-                sm_scale=scale,
-                block_sizes=resolve_block_sizes(s, cfg.flash_blocks))
-            ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, width)
-        else:
-            logits = jnp.einsum("bqhd,bkhd->bhqk", q * scale, k)
-            neg = jnp.finfo(jnp.float32).min
-            causal = jnp.tril(jnp.ones((s, s), bool))
-            keep = causal[None, None, :, :]
-            if attention_mask is not None:
-                keep = keep & (attention_mask[:, None, None, :] > 0)
-            logits = logits + jnp.where(keep, 0.0, neg).astype(logits.dtype)
-            probs = jax.nn.softmax(logits, axis=-1)
-            probs = nn.Dropout(cfg.attention_dropout)(
-                probs, deterministic=deterministic)
-            ctx = jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, width)
+        logits = jnp.einsum("bqhd,bkhd->bhqk", q * scale, k)
+        neg = jnp.finfo(jnp.float32).min
+        causal = jnp.tril(jnp.ones((s, s), bool))
+        keep = causal[None, None, :, :]
+        if attention_mask is not None:
+            keep = keep & (attention_mask[:, None, None, :] > 0)
+        logits = logits + jnp.where(keep, 0.0, neg).astype(logits.dtype)
+        probs = jax.nn.softmax(logits, axis=-1)
+        probs = nn.Dropout(cfg.attention_dropout)(
+            probs, deterministic=deterministic)
+        ctx = jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, width)
 
         if cfg.tp_axis is None:
             out = _dense(cfg, h, "output")(ctx)
         else:
             out = _dense(cfg, h, "output", use_bias=False)(ctx)
-            out = _tp_psum(out, cfg.tp_axis)
+            out = tp_sum(out, cfg.tp_axis)
             out = out + self.param("output_bias", nn.initializers.zeros,
                                    (h,), cfg.dtype)
         return nn.Dropout(cfg.hidden_dropout)(out,
@@ -178,8 +139,8 @@ class GPTBlock(nn.Module):
         x = x + attn
 
         inner_features = cfg.intermediate_size // cfg.tp_size
-        y = nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=cfg.dtype,
-                         name="ffn_norm")(x)
+        y = _enter_tp(cfg, nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                        dtype=cfg.dtype, name="ffn_norm")(x))
         if cfg.gelu_bits:
             from fewbit_tpu.modules.fused import FusedDenseActivation
 
@@ -196,7 +157,7 @@ class GPTBlock(nn.Module):
         else:
             out = _dense(cfg, cfg.hidden_size, "ffn_output",
                          use_bias=False)(inner)
-            out = _tp_psum(out, cfg.tp_axis)
+            out = tp_sum(out, cfg.tp_axis)
             out = out + self.param("ffn_bias", nn.initializers.zeros,
                                    (cfg.hidden_size,), cfg.dtype)
         out = nn.Dropout(cfg.hidden_dropout)(out,

@@ -1,6 +1,6 @@
-"""RoBERTa-base in flax with swappable few-bit components — the flagship
-model for the north-star benchmark (RoBERTa-base MRPC fine-tune with 3-bit
-GELU + RandomizedLinear; reference drives HF RoBERTa through monkey-patching,
+"""RoBERTa-base in plain JAX with swappable few-bit components — the flagship
+model (RoBERTa-base MRPC fine-tune with 3-bit GELU + RandomizedLinear; the
+reference drives HF RoBERTa through monkey-patching,
 ``benchmark/bench-roberta.py:118-149`` / ``bench-linear.py:122-152``; here
 the compression choices are first-class config).
 
@@ -9,25 +9,33 @@ heads 12, FFN 3072, learned positions with the pad-offset quirk).  Two
 config switches inject the memory-efficient training path:
 
 * ``gelu_bits`` — FFN activations run through the few-bit engine (packed
-  ``bits``/8-byte residuals instead of fp32 saved inputs);
-* ``proj_dim_ratio`` — every Dense becomes a RandomizedDense whose VJP
+  ``bits``/8-byte residuals instead of saved inputs);
+* ``proj_dim_ratio`` — every dense layer becomes a randomized one whose VJP
   saves a sketch of its input.
 
-``dtype`` controls activation precision (bf16 recommended on TPU; parameters
-stay float32).
+The model is a nested dict of parameters and pure functions over it that
+call :mod:`fewbit_tpu.functional` directly; it needs no module library.
+``init`` and ``apply`` keep the linen calling convention
+(``{"params": ...}`` variables, ``rngs={"dropout": k, "sketch": k}``) and
+the linen parameter paths, including the stacked ``layers`` axis of the
+scanned encoder, so checkpoints and the tensor-parallel name rules of
+:mod:`fewbit_tpu.parallel.tp` carry over.
+
+``dtype`` is the activation dtype; parameters stay float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+import zlib
+from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from fewbit_tpu import functional as F
-from fewbit_tpu.modules.linear import RandomizedDense
+from fewbit_tpu.functional.linear import fallback_sketch_key
+from fewbit_tpu.parallel.tp import tp_copy, tp_sum
 
 __all__ = ("RobertaConfig", "RobertaModel", "RobertaForSequenceClassification")
 
@@ -51,10 +59,9 @@ class RobertaConfig:
     gelu_bits: Optional[int] = None        # None = exact gelu backward
     proj_dim_ratio: Optional[float] = None  # None = exact Dense backward
     sketch: str = "gaussian"
-    # Compile the encoder as one scanned layer with stacked parameters
-    # (traces/compiles the layer once instead of num_layers times — the
-    # idiomatic TPU structure for deep stacks).  Set False for per-layer
-    # parameter naming.
+    # Run the encoder as one lax.scan over stacked layer parameters (the
+    # layer is traced and compiled once instead of num_layers times).  Set
+    # False for per-layer parameter naming.
     scan_layers: bool = True
     # Tensor parallelism (Megatron-style): when ``tp_axis`` names a mesh axis
     # the model expects to run inside shard_map with attention heads and the
@@ -64,282 +71,341 @@ class RobertaConfig:
     # sharding.  ``num_heads`` / ``intermediate_size`` stay the GLOBAL sizes.
     tp_axis: Optional[str] = None
     tp_size: int = 1
-    # FFN structure with gelu_bits set: True fuses the up projection +
-    # activation + quantise + pack into one Pallas megakernel (the
-    # pre-activation never reaches HBM); False keeps the XLA matmul and runs
-    # only the activation+pack as a Pallas elementwise kernel.  The residual
-    # memory is identical; which is faster depends on shape (the XLA MXU
-    # matmul is hard to beat, the megakernel saves one HBM round trip).
+    # FFN structure with gelu_bits set.  True runs the block as one custom
+    # VJP op: with a countsketch, the whole FFN (fewbit_ffn, which keeps
+    # only sketches of its input and of the activation), otherwise the up
+    # projection + activation (fewbit_dense_act).  False keeps a dense
+    # layer, the elementwise few-bit GELU and a dense layer, so the down
+    # projection saves its full input.
     fused_ffn: bool = True
-    # Pallas TPU flash attention: attention probabilities are never
-    # materialised in HBM (another large activation-memory consumer the
-    # reference never addresses — it has no attention code at all).  TPU
-    # only; other backends silently use the standard path.  The flash kernel
-    # has no dropout inside, so flash_attention=True requires
-    # attention_dropout == 0 (enforced below — a silent train-time behaviour
-    # change would otherwise hide in the kernel choice).  "auto" enables it
-    # exactly where the measurements say it wins both axes: TPU, seq >=
-    # models.flash.FLASH_AUTO_MIN_SEQ, attention_dropout == 0.
-    flash_attention: Any = False  # False | True | "auto"
-    # Explicit (block_q, block_kv) for the flash kernel; None consults the
-    # per-seq tuned table in models/flash.py (kernel defaults otherwise).
-    flash_blocks: Optional[Tuple[int, int]] = None
-
-    def __post_init__(self):
-        from fewbit_tpu.models.flash import validate_flash_setting
-
-        validate_flash_setting(self.flash_attention)
-        if self.flash_attention is True and self.attention_dropout > 0:
-            raise ValueError(
-                "flash_attention=True cannot apply attention dropout (the "
-                "flash kernel never materialises attention probabilities); "
-                "set attention_dropout=0.0 explicitly to opt in, or use "
-                "flash_attention='auto' to keep the standard path when "
-                "dropout is on")
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
 
-def _dense(cfg: RobertaConfig, features: int, name: str) -> nn.Module:
+# ---------------------------------------------------------------------------
+# Parameters.
+# ---------------------------------------------------------------------------
+
+_lecun_normal = jax.nn.initializers.lecun_normal()
+_embed_init = jax.nn.initializers.variance_scaling(1.0, "fan_in", "normal",
+                                                   out_axis=0)
+
+
+def _key(root: jax.Array, name: str) -> jax.Array:
+    """A stable per-name subkey (crc32, not Python's salted ``hash``)."""
+    return jax.random.fold_in(root, zlib.crc32(name.encode()) & 0x7FFFFFFF)
+
+
+def _dense_params(key, fan_in: int, features: int, bias: bool = True):
+    p = {"kernel": _lecun_normal(key, (fan_in, features), jnp.float32)}
+    if bias:
+        p["bias"] = jnp.zeros((features,), jnp.float32)
+    return p
+
+
+def _norm_params(width: int):
+    return {"scale": jnp.ones((width,), jnp.float32),
+            "bias": jnp.zeros((width,), jnp.float32)}
+
+
+def _layer_params(cfg: RobertaConfig, key: jax.Array) -> dict:
+    h = cfg.hidden_size
+    width = cfg.num_heads // cfg.tp_size * cfg.head_dim
+    inner = cfg.intermediate_size // cfg.tp_size
+    tp = cfg.tp_axis is not None
+    attention = {name: _dense_params(_key(key, name), h, width)
+                 for name in ("query", "key", "value")}
+    attention["output"] = _dense_params(_key(key, "output"), width, h,
+                                        bias=not tp)
+    if tp:
+        attention["output_bias"] = jnp.zeros((h,), jnp.float32)
+    p = {"attention": attention,
+         "attention_norm": _norm_params(h),
+         "output_norm": _norm_params(h)}
+    if _whole_ffn(cfg):
+        ffn = {"up_kernel": _lecun_normal(_key(key, "up"), (h, inner)),
+               "down_kernel": _lecun_normal(_key(key, "down"), (inner, h)),
+               "up_bias": jnp.zeros((inner,), jnp.float32)}
+        if not tp:
+            ffn["down_bias"] = jnp.zeros((h,), jnp.float32)
+        p["ffn"] = ffn
+    else:
+        p["intermediate"] = _dense_params(_key(key, "intermediate"), h,
+                                          inner)
+        p["ffn_output"] = _dense_params(_key(key, "ffn_output"), inner, h,
+                                        bias=not tp)
+    if tp:
+        p["ffn_bias"] = jnp.zeros((h,), jnp.float32)
+    return p
+
+
+def _encoder_params(cfg: RobertaConfig, key: jax.Array) -> dict:
+    h = cfg.hidden_size
+    embeddings = {
+        "word_embeddings": {"embedding": _embed_init(
+            _key(key, "word"), (cfg.vocab_size, h), jnp.float32)},
+        "position_embeddings": {"embedding": _embed_init(
+            _key(key, "position"), (cfg.max_position_embeddings, h),
+            jnp.float32)},
+        "token_type_embeddings": {"embedding": _embed_init(
+            _key(key, "token_type"), (cfg.type_vocab_size, h),
+            jnp.float32)},
+        "layer_norm": _norm_params(h),
+    }
+    layer_keys = jax.random.split(_key(key, "layers"), cfg.num_layers)
+    if cfg.scan_layers:
+        return {"embeddings": embeddings,
+                "layers": jax.vmap(lambda k: _layer_params(cfg, k))(
+                    layer_keys)}
+    p = {"embeddings": embeddings}
+    for i in range(cfg.num_layers):
+        p[f"layer_{i}"] = _layer_params(cfg, layer_keys[i])
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Forward.
+# ---------------------------------------------------------------------------
+
+
+def _whole_ffn(cfg: RobertaConfig) -> bool:
+    return bool(cfg.gelu_bits and cfg.fused_ffn and cfg.proj_dim_ratio
+                and cfg.sketch == "countsketch")
+
+
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class _Rngs:
+    """Dropout and sketch keys of one call; ``None`` where not given."""
+    dropout: Optional[jax.Array]
+    sketch: Optional[jax.Array]
+
+    def fold(self, name: str) -> "_Rngs":
+        return _Rngs(*(None if k is None else _key(k, name)
+                       for k in (self.dropout, self.sketch)))
+
+
+def _cast(cfg, *arrays):
+    return [None if a is None else a.astype(cfg.dtype) for a in arrays]
+
+
+def _dense(cfg, p, x, rngs: _Rngs, name: str):
+    kernel, bias, x = _cast(cfg, p["kernel"], p.get("bias"), x)
     if cfg.proj_dim_ratio:
-        return RandomizedDense(features=features, dtype=cfg.dtype,
-                               proj_dim_ratio=cfg.proj_dim_ratio,
-                               matmul=cfg.sketch, name=name)
-    return nn.Dense(features=features, dtype=cfg.dtype, name=name)
+        return F.linear_grp_native(x, kernel, bias, _sketch_key(rngs, name),
+                                   proj_dim_ratio=cfg.proj_dim_ratio,
+                                   matmul=cfg.sketch)
+    y = jnp.einsum("...i,io->...o", x, kernel)
+    return y if bias is None else y + bias
 
 
-def _dense_nobias(cfg: RobertaConfig, features: int, name: str) -> nn.Module:
-    if cfg.proj_dim_ratio:
-        return RandomizedDense(features=features, dtype=cfg.dtype,
-                               use_bias=False,
-                               proj_dim_ratio=cfg.proj_dim_ratio,
-                               matmul=cfg.sketch, name=name)
-    return nn.Dense(features=features, dtype=cfg.dtype, use_bias=False,
-                    name=name)
+def _sketch_key(rngs: _Rngs, name: str) -> jax.Array:
+    if rngs.sketch is None:
+        return fallback_sketch_key(f"RobertaConfig.proj_dim_ratio ({name})",
+                                   stacklevel=5)
+    return _key(rngs.sketch, name)
 
 
-def _activation(cfg: RobertaConfig, x: jax.Array) -> jax.Array:
-    if cfg.gelu_bits:
-        return F.gelu(x, bits=cfg.gelu_bits)
-    return jax.nn.gelu(x, approximate=False)
+def _layer_norm(cfg, p, x):
+    xf = x.astype(jnp.float32)
+    mean = xf.mean(axis=-1, keepdims=True)
+    var = jnp.square(xf - mean).mean(axis=-1, keepdims=True)
+    y = (xf - mean) * jax.lax.rsqrt(var + cfg.layer_norm_eps)
+    return (y * p["scale"] + p["bias"]).astype(cfg.dtype)
 
 
-def _tp_psum(x: jax.Array, axis: str) -> jax.Array:
-    """psum over the tp axis; identity when tracing outside shard_map (used
-    by abstract template construction — shapes are unaffected)."""
-    try:
-        return jax.lax.psum(x, axis)
-    except NameError:
+def _dropout(rate: float, x, rngs: _Rngs, name: str, deterministic: bool):
+    if deterministic or rate == 0.0:
         return x
+    if rngs.dropout is None:
+        raise ValueError("training with dropout needs rngs={'dropout': key}")
+    keep = jax.random.bernoulli(_key(rngs.dropout, name), 1.0 - rate,
+                                x.shape)
+    return jnp.where(keep, x / (1.0 - rate), jnp.zeros_like(x))
 
 
-class RobertaEmbeddings(nn.Module):
-    cfg: RobertaConfig
-
-    @nn.compact
-    def __call__(self, input_ids, token_type_ids, deterministic: bool):
-        cfg = self.cfg
-        # RoBERTa position quirk: positions count from pad_token_id + 1 and
-        # padding tokens keep position pad_token_id.
-        mask = (input_ids != cfg.pad_token_id).astype(jnp.int32)
-        position_ids = jnp.cumsum(mask, axis=-1) * mask + cfg.pad_token_id
-
-        words = nn.Embed(cfg.vocab_size, cfg.hidden_size,
-                         dtype=cfg.dtype, name="word_embeddings")(input_ids)
-        positions = nn.Embed(cfg.max_position_embeddings, cfg.hidden_size,
-                             dtype=cfg.dtype,
-                             name="position_embeddings")(position_ids)
-        types = nn.Embed(cfg.type_vocab_size, cfg.hidden_size,
-                         dtype=cfg.dtype,
-                         name="token_type_embeddings")(token_type_ids)
-        x = words + positions + types
-        x = nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=cfg.dtype,
-                         name="layer_norm")(x)
-        return nn.Dropout(cfg.hidden_dropout)(x, deterministic=deterministic)
+def _enter_tp(cfg, x):
+    """The replicated input of column-parallel layers: its gradient is the
+    sum of every rank's partial gradient."""
+    return x if cfg.tp_axis is None else tp_copy(x, cfg.tp_axis)
 
 
-class RobertaSelfAttention(nn.Module):
-    cfg: RobertaConfig
+def _row_parallel(cfg, out, bias):
+    """Sum the row-parallel partial products, then add the bias once."""
+    return tp_sum(out, cfg.tp_axis) + bias.astype(cfg.dtype)
 
-    @nn.compact
-    def __call__(self, x, attention_mask, deterministic: bool):
-        cfg = self.cfg
-        b, s, h = x.shape
-        heads = cfg.num_heads // cfg.tp_size  # local heads under TP
-        width = heads * cfg.head_dim
-        q = _dense(cfg, width, "query")(x)
-        k = _dense(cfg, width, "key")(x)
-        v = _dense(cfg, width, "value")(x)
 
-        def split(t):
-            return t.reshape(b, s, heads, cfg.head_dim)
-
-        q, k, v = split(q), split(k), split(v)
-        scale = cfg.head_dim ** -0.5
-
-        from fewbit_tpu.models.flash import resolve_block_sizes, use_flash
-
-        if use_flash(cfg.flash_attention, s, cfg.attention_dropout,
-                     deterministic=deterministic):
-            from jax.experimental.pallas.ops.tpu import flash_attention as fa
-
-            seg = None
-            if attention_mask is not None:
-                ids = attention_mask.astype(jnp.int32)
-                seg = fa.SegmentIds(q=ids, kv=ids)
-            ctx = fa.flash_attention(
-                q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-                v.transpose(0, 2, 1, 3), segment_ids=seg, causal=False,
-                sm_scale=scale,
-                block_sizes=resolve_block_sizes(s, cfg.flash_blocks))
-            ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, width)
-        else:
-            ctx = self._standard_attention(cfg, q, k, v, scale,
-                                           attention_mask, deterministic,
-                                           b, s, width)
-        if cfg.tp_axis is None:
-            out = _dense(cfg, h, "output")(ctx)
-        else:
-            # Row-parallel: partial products summed over the tp axis, bias
-            # added exactly once after the reduction.
-            out = _dense_nobias(cfg, h, "output")(ctx)
-            out = _tp_psum(out, cfg.tp_axis)
-            out = out + self.param("output_bias", nn.initializers.zeros,
-                                   (h,), cfg.dtype)
-        out = nn.Dropout(cfg.hidden_dropout)(out, deterministic=deterministic)
-        return out
-
-    @nn.nowrap
-    def _standard_attention(self, cfg, q, k, v, scale, attention_mask,
-                            deterministic, b, s, width):
-        logits = jnp.einsum("bqhd,bkhd->bhqk", q * scale, k)
-        if attention_mask is not None:
-            bias = jnp.where(attention_mask[:, None, None, :] > 0, 0.0,
-                             jnp.finfo(jnp.float32).min).astype(logits.dtype)
-            logits = logits + bias
+def _attention(cfg, p, x, mask, rngs: _Rngs, deterministic: bool):
+    b, s, h = x.shape
+    heads = cfg.num_heads // cfg.tp_size  # local heads under TP
+    width = heads * cfg.head_dim
+    x = _enter_tp(cfg, x)
+    with jax.named_scope("qkv_proj"):
+        q, k, v = (_dense(cfg, p[n], x, rngs, n).reshape(
+            b, s, heads, cfg.head_dim) for n in ("query", "key", "value"))
+    with jax.named_scope("attention"):
+        logits = jnp.einsum("bqhd,bkhd->bhqk", q * cfg.head_dim ** -0.5, k)
+        if mask is not None:
+            logits = logits + jnp.where(
+                mask[:, None, None, :] > 0, 0.0,
+                jnp.finfo(jnp.float32).min).astype(logits.dtype)
         probs = jax.nn.softmax(logits, axis=-1)
-        probs = nn.Dropout(cfg.attention_dropout)(
-            probs, deterministic=deterministic)
-        return jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, width)
+        probs = _dropout(cfg.attention_dropout, probs, rngs, "probs",
+                         deterministic)
+        ctx = jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, width)
+    with jax.named_scope("out_proj"):
+        out = _dense(cfg, p["output"], ctx, rngs, "output")
+        if cfg.tp_axis is not None:
+            out = _row_parallel(cfg, out, p["output_bias"])
+    return _dropout(cfg.hidden_dropout, out, rngs, "attention_out",
+                    deterministic)
 
 
-class RobertaLayer(nn.Module):
-    cfg: RobertaConfig
-
-    @nn.compact
-    def __call__(self, x, attention_mask, deterministic: bool):
-        cfg = self.cfg
-        attn = RobertaSelfAttention(cfg, name="attention")(
-            x, attention_mask, deterministic)
-        x = nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=cfg.dtype,
-                         name="attention_norm")(x + attn)
-
-        # Column-parallel up projection (local slice of the FFN inner dim
-        # under TP), few-bit activation on the local shard — the bitpacked
-        # residual inherits the tp feature sharding — then row-parallel down
-        # projection with a single psum.  With gelu_bits set, the up
-        # projection + activation + quantise + pack run as ONE Pallas kernel
-        # (the fp32 pre-activation never reaches HBM).
-        inner_features = cfg.intermediate_size // cfg.tp_size
-        if (cfg.gelu_bits and cfg.fused_ffn and cfg.proj_dim_ratio
-                and cfg.sketch == "countsketch"):
-            # Whole-block fusion: up + gelu + quantise + pack + sketch(y) in
-            # one kernel, matmul + LUT-dequant + sketch(dz) + db in one
-            # backward kernel — no (N, inner) tensor survives the forward.
-            from fewbit_tpu.modules.ffn import FewBitFFN
-
-            out = FewBitFFN(
-                inner_features=inner_features,
-                out_features=cfg.hidden_size, activation="gelu",
-                bits=cfg.gelu_bits, dtype=cfg.dtype,
-                proj_dim_ratio=cfg.proj_dim_ratio,
-                use_down_bias=cfg.tp_axis is None,
-                name="ffn")(x)
-            if cfg.tp_axis is not None:
-                out = _tp_psum(out, cfg.tp_axis)
-                out = out + self.param("ffn_bias", nn.initializers.zeros,
-                                       (cfg.hidden_size,), cfg.dtype)
-            out = nn.Dropout(cfg.hidden_dropout)(
-                out, deterministic=deterministic)
-            return nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=cfg.dtype,
-                                name="output_norm")(x + out)
+def _ffn(cfg, p, x, rngs: _Rngs):
+    """Column-parallel up projection and few-bit activation on the local
+    shard of the FFN inner dim (the packed residual inherits the tp
+    feature sharding), then the row-parallel down projection."""
+    x = _enter_tp(cfg, x)
+    if _whole_ffn(cfg):
+        f = p["ffn"]
+        up, b_up, down, b_down, xc = _cast(
+            cfg, f["up_kernel"], f["up_bias"], f["down_kernel"],
+            f.get("down_bias"), x)
+        out = F.fewbit_ffn(xc, up, b_up, down, b_down,
+                           _sketch_key(rngs, "ffn"), activation="gelu",
+                           bits=cfg.gelu_bits,
+                           proj_dim_ratio=cfg.proj_dim_ratio)
+    else:
         if cfg.gelu_bits and cfg.fused_ffn:
-            from fewbit_tpu.modules.fused import FusedDenseActivation
-
-            inner = FusedDenseActivation(
-                features=inner_features, activation="gelu",
-                bits=cfg.gelu_bits, dtype=cfg.dtype,
-                proj_dim_ratio=cfg.proj_dim_ratio, matmul=cfg.sketch,
-                name="intermediate")(x)
+            kernel, bias, xc = _cast(cfg, p["intermediate"]["kernel"],
+                                     p["intermediate"]["bias"], x)
+            key = (_sketch_key(rngs, "intermediate")
+                   if cfg.proj_dim_ratio else None)
+            inner = F.fewbit_dense_act(xc, kernel, bias, key,
+                                       activation="gelu", bits=cfg.gelu_bits,
+                                       proj_dim_ratio=cfg.proj_dim_ratio,
+                                       matmul=cfg.sketch)
         else:
-            inner = _dense(cfg, inner_features, "intermediate")(x)
-            inner = _activation(cfg, inner)
-        if cfg.tp_axis is None:
-            out = _dense(cfg, cfg.hidden_size, "ffn_output")(inner)
-        else:
-            out = _dense_nobias(cfg, cfg.hidden_size, "ffn_output")(inner)
-            out = _tp_psum(out, cfg.tp_axis)
-            out = out + self.param("ffn_bias", nn.initializers.zeros,
-                                   (cfg.hidden_size,), cfg.dtype)
-        out = nn.Dropout(cfg.hidden_dropout)(out, deterministic=deterministic)
-        return nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=cfg.dtype,
-                            name="output_norm")(x + out)
+            inner = _dense(cfg, p["intermediate"], x, rngs, "intermediate")
+            inner = (F.gelu(inner, bits=cfg.gelu_bits) if cfg.gelu_bits
+                     else jax.nn.gelu(inner, approximate=False))
+        out = _dense(cfg, p["ffn_output"], inner, rngs, "ffn_output")
+    if cfg.tp_axis is not None:
+        out = _row_parallel(cfg, out, p["ffn_bias"])
+    return out
 
 
-class _ScanRobertaLayer(RobertaLayer):
-    """RobertaLayer with a scan-compatible (carry, ...) -> (carry, None)
-    signature."""
+def _layer(cfg, p, x, mask, rngs: _Rngs, deterministic: bool):
+    attn = _attention(cfg, p["attention"], x, mask, rngs, deterministic)
+    x = _layer_norm(cfg, p["attention_norm"], x + attn)
+    with jax.named_scope("ffn"):
+        out = _ffn(cfg, p, x, rngs)
+    out = _dropout(cfg.hidden_dropout, out, rngs, "ffn_out", deterministic)
+    return _layer_norm(cfg, p["output_norm"], x + out)
 
-    @nn.compact
-    def __call__(self, x, attention_mask, deterministic: bool):
-        y = super().__call__(x, attention_mask, deterministic)
-        return y, None
+
+def _embed(cfg, p, input_ids, token_type_ids, rngs, deterministic):
+    # RoBERTa position quirk: positions count from pad_token_id + 1 and
+    # padding tokens keep position pad_token_id.
+    mask = (input_ids != cfg.pad_token_id).astype(jnp.int32)
+    position_ids = jnp.cumsum(mask, axis=-1) * mask + cfg.pad_token_id
+
+    def lookup(name, ids):
+        return jnp.take(p[name]["embedding"].astype(cfg.dtype), ids, axis=0)
+
+    x = (lookup("word_embeddings", input_ids)
+         + lookup("position_embeddings", position_ids)
+         + lookup("token_type_embeddings", token_type_ids))
+    x = _layer_norm(cfg, p["layer_norm"], x)
+    return _dropout(cfg.hidden_dropout, x, rngs, "embeddings", deterministic)
 
 
-class RobertaModel(nn.Module):
-    cfg: RobertaConfig
-
-    @nn.compact
-    def __call__(self, input_ids, attention_mask=None, token_type_ids=None,
-                 deterministic: bool = True):
-        cfg = self.cfg
-        if token_type_ids is None:
-            token_type_ids = jnp.zeros_like(input_ids)
-        x = RobertaEmbeddings(cfg, name="embeddings")(
-            input_ids, token_type_ids, deterministic)
-        if cfg.scan_layers:
-            scanned = nn.scan(
-                _ScanRobertaLayer,
-                variable_axes={"params": 0},
-                split_rngs={"params": True, "dropout": True, "sketch": True},
-                in_axes=(nn.broadcast, nn.broadcast),
-                length=cfg.num_layers,
-                metadata_params={nn.PARTITION_NAME: None},
-            )
-            x, _ = scanned(cfg, name="layers")(x, attention_mask,
-                                               deterministic)
-        else:
-            for i in range(cfg.num_layers):
-                x = RobertaLayer(cfg, name=f"layer_{i}")(
-                    x, attention_mask, deterministic)
+def _encode(cfg, p, input_ids, mask, token_type_ids, rngs: _Rngs,
+            deterministic: bool):
+    if token_type_ids is None:
+        token_type_ids = jnp.zeros_like(input_ids)
+    with jax.named_scope("embeddings"):
+        x = _embed(cfg, p["embeddings"], input_ids, token_type_ids,
+                   rngs.fold("embeddings"), deterministic)
+    layer_rngs = [rngs.fold(f"layer_{i}") for i in range(cfg.num_layers)]
+    if not cfg.scan_layers:
+        for i in range(cfg.num_layers):
+            x = _layer(cfg, p[f"layer_{i}"], x, mask, layer_rngs[i],
+                       deterministic)
         return x
+    stacked = jax.tree.map(lambda *ks: jnp.stack(ks), *layer_rngs)
+
+    def body(x, xs):
+        params, r = xs
+        return _layer(cfg, params, x, mask, r, deterministic), None
+
+    x, _ = jax.lax.scan(body, x, (p["layers"], stacked))
+    return x
 
 
-class RobertaForSequenceClassification(nn.Module):
-    cfg: RobertaConfig
+def _root_key(rngs) -> jax.Array:
+    return rngs["params"] if isinstance(rngs, dict) else rngs
 
-    @nn.compact
-    def __call__(self, input_ids, attention_mask=None, token_type_ids=None,
-                 deterministic: bool = True):
+
+def _call_rngs(rngs) -> _Rngs:
+    rngs = rngs or {}
+    return _Rngs(rngs.get("dropout"), rngs.get("sketch"))
+
+
+class RobertaModel:
+    """The encoder: ``init(rngs, input_ids, ...) -> {"params": ...}`` and
+    ``apply(variables, input_ids, attention_mask=None, token_type_ids=None,
+    deterministic=True, rngs=None)`` -> hidden states ``(b, s, hidden)``."""
+
+    def __init__(self, cfg: RobertaConfig):
+        self.cfg = cfg
+
+    def init(self, rngs, input_ids=None, attention_mask=None,
+             token_type_ids=None, deterministic: bool = True) -> dict:
+        return {"params": _encoder_params(self.cfg, _root_key(rngs))}
+
+    def apply(self, variables, input_ids, attention_mask=None,
+              token_type_ids=None, deterministic: bool = True,
+              rngs=None) -> jax.Array:
+        return _encode(self.cfg, variables["params"], input_ids,
+                       attention_mask, token_type_ids, _call_rngs(rngs),
+                       deterministic)
+
+
+class RobertaForSequenceClassification:
+    """RoBERTa with the classification head on the ``<s>`` token; the same
+    ``init`` / ``apply`` convention as :class:`RobertaModel`, returning
+    logits ``(b, num_labels)``."""
+
+    def __init__(self, cfg: RobertaConfig):
+        self.cfg = cfg
+
+    def init(self, rngs, input_ids=None, attention_mask=None,
+             token_type_ids=None, deterministic: bool = True) -> dict:
         cfg = self.cfg
-        hidden = RobertaModel(cfg, name="roberta")(
-            input_ids, attention_mask, token_type_ids, deterministic)
-        # RoBERTa classification head on the <s> token.
-        x = hidden[:, 0, :]
-        x = nn.Dropout(cfg.hidden_dropout)(x, deterministic=deterministic)
-        x = _dense(cfg, cfg.hidden_size, "head_dense")(x)
-        x = jnp.tanh(x)
-        x = nn.Dropout(cfg.hidden_dropout)(x, deterministic=deterministic)
-        return _dense(cfg, cfg.num_labels, "head_out")(x)
+        key = _root_key(rngs)
+        return {"params": {
+            "roberta": _encoder_params(cfg, _key(key, "roberta")),
+            "head_dense": _dense_params(_key(key, "head_dense"),
+                                        cfg.hidden_size, cfg.hidden_size),
+            "head_out": _dense_params(_key(key, "head_out"),
+                                      cfg.hidden_size, cfg.num_labels),
+        }}
+
+    def apply(self, variables, input_ids, attention_mask=None,
+              token_type_ids=None, deterministic: bool = True,
+              rngs=None) -> jax.Array:
+        cfg = self.cfg
+        p = variables["params"]
+        r = _call_rngs(rngs)
+        hidden = _encode(cfg, p["roberta"], input_ids, attention_mask,
+                         token_type_ids, r.fold("roberta"), deterministic)
+        r = r.fold("head")
+        with jax.named_scope("head"):
+            x = _dropout(cfg.hidden_dropout, hidden[:, 0, :], r, "cls",
+                         deterministic)
+            x = jnp.tanh(_dense(cfg, p["head_dense"], x, r, "head_dense"))
+            x = _dropout(cfg.hidden_dropout, x, r, "head", deterministic)
+            return _dense(cfg, p["head_out"], x, r, "head_out")

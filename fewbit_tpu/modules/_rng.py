@@ -11,35 +11,20 @@ gradients) but it warns loudly.
 
 from __future__ import annotations
 
-import os
-import warnings
-
 import jax
 
-__all__ = ("sketch_key",)
+from fewbit_tpu.functional.linear import fallback_sketch_key
 
-_WARNING = (
-    "{cls}: no 'sketch' RNG collection was provided to .apply(); falling "
-    "back to a constant key.  Every training step will reuse the SAME "
-    "random sketch signs, so the weight-gradient noise is perfectly "
-    "correlated across steps and will not average out.  Pass "
-    "rngs={{'sketch': key}} (fresh per step) when training; this fallback "
-    "is only safe for inference.  Set FEWBIT_TPU_STRICT_SKETCH=1 to make "
-    "this an error.")
+__all__ = ("sketch_key",)
 
 
 def sketch_key(module) -> jax.Array:
     """Resolve the sketch PRNG key for a linen module: the ``'sketch'``
     collection when provided, the ``'params'`` key under ``init`` (gradients
-    are never taken during init), else a constant key with a warning — or,
-    under ``FEWBIT_TPU_STRICT_SKETCH=1``, an error (training code should
-    never rely on the constant-key fallback)."""
+    are never taken during init), else the constant-key fallback of
+    :func:`fewbit_tpu.functional.linear.fallback_sketch_key`."""
     if module.has_rng("sketch"):
         return module.make_rng("sketch")
     if module.has_rng("params"):
         return module.make_rng("params")
-    msg = _WARNING.format(cls=type(module).__name__)
-    if os.environ.get("FEWBIT_TPU_STRICT_SKETCH") == "1":
-        raise RuntimeError(msg)
-    warnings.warn(msg, stacklevel=3)
-    return jax.random.key(0)
+    return fallback_sketch_key(type(module).__name__, stacklevel=4)

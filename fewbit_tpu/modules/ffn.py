@@ -17,7 +17,7 @@ __all__ = ("FewBitFFN",)
 class FewBitFFN(nn.Module):
     """``act(x @ up + b_up) @ down + b_down`` with few-bit activation
     residuals and countsketched weight gradients for both projections,
-    fused end to end (one Pallas megakernel per direction on TPU).
+    as one op (:func:`fewbit_tpu.functional.fewbit_ffn`).
 
     Parameters live under ``up``/``down`` submodule-style names
     (``up_kernel``, ``up_bias``, ``down_kernel``, ``down_bias``).

@@ -61,7 +61,7 @@ class RandomizedDense(_SketchedBase):
     :param proj_dim_min: lower clamp on the sketch size.
     :param proj_dim_max: upper clamp on the sketch size.
     :param matmul: ``'gaussian' | 'rademacher' | 'dct' | 'dft' |
-        'countsketch' | 'srht'`` (the latter two are the TPU-native kinds).
+        'countsketch' | 'srht'`` (countsketch is the recommended kind).
     """
     proj_dim_ratio: Optional[float] = None
     proj_dim: Optional[int] = None

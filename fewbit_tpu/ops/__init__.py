@@ -1,4 +1,4 @@
-"""Compute-path primitives: bit-plane codec, activation engine, Pallas kernels."""
+"""Compute-path primitives: bit-plane layout, codec, activation engine."""
 
 from fewbit_tpu.ops.bitpack import (  # noqa: F401
     GROUP, pack_codes, packed_nbytes, packed_num_words, unpack_codes)

@@ -12,10 +12,9 @@ spec of the whole engine — ``/root/reference/fewbit/functional/activations.py:
 
 Where the reference needed ~800 lines of hand-written CUDA for 21 separate
 ops (``cuda/codec.cu:229-670``, ``cuda/activation.cc``), a single spec-driven
-``custom_vjp`` covers the whole surface here; on TPU the forward
-(activation + quantise + pack) and backward (unpack + LUT + multiply) each
-run as one fused Pallas kernel (:mod:`fewbit_tpu.ops.pallas_kernels`), and a
-pure-``jnp`` path with bit-identical packing serves every other backend.
+``custom_vjp`` covers the whole surface here; the forward (activation +
+quantise + pack) and backward (unpack + LUT + multiply) are the two entries
+of :mod:`fewbit_tpu.ops.codec`.
 
 The two families:
 
@@ -32,14 +31,14 @@ The two families:
 from __future__ import annotations
 
 import dataclasses
-import os
 from functools import partial
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
-from fewbit_tpu.ops.bitpack import pack_codes, unpack_codes
+from fewbit_tpu.ops import codec
+from fewbit_tpu.ops.codec import apply_lut
 
 __all__ = (
     "ActivationSpec",
@@ -47,22 +46,6 @@ __all__ = (
     "apply_lut",
     "quantize_codes",
 )
-
-
-def _use_pallas() -> bool:
-    """Whether to try the fused Pallas kernels.
-
-    ``FEWBIT_TPU_NATIVE=0`` disables them (reference parity with the
-    ``FEWBIT_NATIVE`` toggle, ``fewbit/__init__.py:14-17``);
-    ``FEWBIT_TPU_NATIVE=interpret`` runs them in interpreter mode on any
-    backend (used by the CPU test suite to validate kernel semantics).
-    """
-    env = os.getenv("FEWBIT_TPU_NATIVE", "").lower()
-    if env in ("0", "no", "false"):
-        return False
-    if env == "interpret":
-        return True
-    return jax.default_backend() == "tpu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +70,8 @@ class ActivationSpec:
     codes: Callable[[jax.Array, jax.Array, tuple], jax.Array]
     args: tuple = ()
     n_borders: int = 0
-    # Optional forward variant restricted to primitives Mosaic can lower
-    # (e.g. polynomial erf instead of lax.erfc); used inside Pallas kernels.
+    # Optional forward for the Triton codec kernel, for functions whose
+    # plain form uses a primitive that route does not lower (lax.erfc).
     fwd_kernel: Callable[[jax.Array, tuple], jax.Array] | None = None
 
     @property
@@ -100,32 +83,15 @@ def compare_codes(x: jax.Array, borders: jax.Array, args: tuple) -> jax.Array:
     """Interval code = number of interior borders strictly below x.
 
     Equivalent to ``searchsorted(borders, x, side='left')`` but expressed as
-    an unrolled compare-accumulate so it stays a fused elementwise pipeline on
-    the VPU instead of a per-element binary search (the TPU answer to the
-    reference's per-thread ``BinarySearch``, ``cuda/codec.cu:118-140``).
+    an unrolled compare-accumulate, so it stays one fused elementwise pass
+    with no data-dependent branch (the reference does a per-thread
+    ``BinarySearch``, ``cuda/codec.cu:118-140``).
     """
     xf = x.astype(jnp.float32)
     acc = jnp.zeros(x.shape, dtype=jnp.uint32)
     for k in range(borders.shape[0]):
         acc = acc + (xf > borders[k]).astype(jnp.uint32)
     return acc
-
-
-def apply_lut(codes: jax.Array, levels: jax.Array, bits: int) -> jax.Array:
-    """``levels[codes]`` as a balanced select tree (no gather).
-
-    One boolean mask per code bit, then ``2**bits - 1`` selects arranged as a
-    tree of depth ``bits`` — the same structure as the Pallas backward kernel.
-    Unlike a linear ``codes == k`` chain this has no O(2**bits) sequential
-    dependency and no integer compares, so it stays cheap even at the 256-level
-    maximum of the generic ``stepwise`` op (8 masks + 255 independent selects
-    vs 255 *chained* compare+selects)."""
-    vals = [levels[k] for k in range(1 << bits)]
-    for b in range(bits):
-        mask = ((codes >> jnp.uint32(b)) & jnp.uint32(1)).astype(bool)
-        vals = [jnp.where(mask, vals[2 * k + 1], vals[2 * k])
-                for k in range(len(vals) // 2)]
-    return vals[0]
 
 
 def quantize_codes(x: jax.Array, borders: jax.Array) -> jax.Array:
@@ -152,33 +118,15 @@ def fewbit_activation(spec: ActivationSpec, x: jax.Array,
 
 
 def _fewbit_fwd(spec, x, borders, levels):
-    if _use_pallas():
-        from fewbit_tpu.ops import pallas_kernels
-
-        out = pallas_kernels.fused_forward(spec, x, borders)
-        if out is not None:
-            y, packed = out
-            return y, (packed, levels)
-    y = spec.fwd(x, spec.args)
-    codes = spec.codes(x, borders, spec.args)
-    packed = pack_codes(codes.reshape(-1), spec.bits)
+    y, packed = codec.forward(spec, x, borders)
     return y, (packed, levels)
 
 
 def _fewbit_bwd(spec, residual, g):
     packed, levels = residual
-    zeros = (jnp.zeros((spec.n_borders,), dtype=jnp.float32),
-             jnp.zeros_like(levels))
-    if _use_pallas():
-        from fewbit_tpu.ops import pallas_kernels
-
-        dx = pallas_kernels.fused_backward(spec, packed, levels, g)
-        if dx is not None:
-            return (dx,) + zeros
-    codes = unpack_codes(packed, spec.bits, g.size)
-    mult = apply_lut(codes, levels, spec.bits).reshape(g.shape)
-    dx = (mult * g.astype(mult.dtype)).astype(g.dtype)
-    return (dx,) + zeros
+    dx = codec.backward(spec, packed, levels, g)
+    return (dx, jnp.zeros((spec.n_borders,), dtype=jnp.float32),
+            jnp.zeros_like(levels))
 
 
 fewbit_activation.defvjp(_fewbit_fwd, _fewbit_bwd)

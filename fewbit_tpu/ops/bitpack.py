@@ -1,11 +1,10 @@
-"""Dense bit-plane codec for few-bit activation codes.
+"""Dense bit-plane layout for few-bit activation codes.
 
 The reference library packs codes into a dense byte stream with a CUDA
 warp-shuffle butterfly (8 elements -> ``bits`` bytes, block aligned;
-``/root/reference/fewbit/cuda/codec.cu:142-220``).  Bytes and warp shuffles
-are the wrong primitives for a TPU, whose vector unit operates on 32-bit
-lanes across a (8, 128) register tile.  The TPU-native layout used here is a
-**bit-plane transpose**:
+``/root/reference/fewbit/cuda/codec.cu:142-220``).  Here the layout is a
+**bit-plane transpose** of 32-bit words, which plain XLA ops and a GPU
+kernel both build with shifts and sums alone:
 
 * the flat code vector (values in ``[0, 2**bits)``) is viewed as a
   ``(32, n // 32)`` matrix (C order);
@@ -17,17 +16,17 @@ Properties:
 
 * exactly ``bits`` bits per element — same density as the reference stream
   codec (``fp32 -> bits/8`` bytes per element);
-* pack and unpack are pure shift/or/sum operations, perfectly vectorised on
-  the VPU — the per-plane OR across 32 disjoint bit positions is a plain
-  integer ``sum`` over the sublane axis, and no gathers or byte shuffles are
-  ever needed;
+* pack and unpack are pure shift/or/sum operations, fully vectorised — the
+  per-plane OR across 32 disjoint bit positions is a plain integer ``sum``
+  over the leading axis, and no gathers or byte shuffles are ever needed;
+* each row of the ``(32, m)`` view is a contiguous run of the input, so a
+  kernel reads it coalesced and keeps each column's words in registers;
 * the group size 32 divides every realistic activation shape (the reference's
   group of 8 had the same role, ``cuda/codec.h:4-6``).
 
-The functions here are the pure-``jnp`` reference implementation; the fused
-Pallas kernels in :mod:`fewbit_tpu.ops.pallas_kernels` produce bit-identical
-buffers so the two paths are freely interchangeable between forward and
-backward.
+The functions here are the pure-``jnp`` reference implementation; the
+Triton forward kernel in :mod:`fewbit_tpu.ops.codec` produces bit-identical
+buffers, so a residual from either path decodes in the other.
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ def packed_nbytes(n: int, bits: int) -> int:
 
 def _row_shift(m: int) -> jax.Array:
     # Row index of the (GROUP, m) code matrix, used as the bit position of
-    # each element inside its plane word.  (TPU requires >= 2-D iota.)
+    # each element inside its plane word.
     return jax.lax.broadcasted_iota(jnp.uint32, (GROUP, m), 0)
 
 
@@ -83,8 +82,7 @@ def pack_codes(codes: jax.Array, bits: int) -> jax.Array:
     for b in range(bits):
         plane = (c >> b) & jnp.uint32(1)
         # The 32 shifted single-bit rows occupy disjoint bit positions, so an
-        # integer sum over the sublane axis is exactly the bitwise OR — and a
-        # native fast VPU reduction.
+        # integer sum over the leading axis is exactly the bitwise OR.
         planes.append(jnp.sum(plane << shift, axis=0, dtype=jnp.uint32))
     return jnp.stack(planes, axis=0)
 

@@ -1,19 +1,21 @@
-"""Multi-host (pod-slice) bootstrap and DCN-aware mesh construction.
+"""Multi-host bootstrap and host-aware mesh construction.
 
 The reference library is strictly single-device/single-process (SURVEY.md
-§2.3 — no ``torch.distributed`` import anywhere); scaling over a TPU pod
-slice is a net-new capability of this framework.  The JAX multi-host model:
+§2.3 — no ``torch.distributed`` import anywhere); scaling over several
+hosts is a net-new capability of this framework.  The JAX multi-host model:
 every host runs the *same* program, ``jax.distributed.initialize`` wires the
 processes together, and ``jax.devices()`` then returns the global device
 list.  Sharded computation code does not change — what changes is the mesh
-layout, which must keep fast ICI neighbours together and let only the
-data-parallel axis cross the slow DCN (inter-host) links.
+layout.  Within one host the cards talk over NVLink, all to all at one rate;
+across hosts the collectives go over the slower inter-host network (NCCL
+over InfiniBand or Ethernet), so only the data-parallel axis should cross
+it.
 
 :func:`make_pod_mesh` builds a ``(dp, tp)`` mesh ordered **host-major**: the
 ``tp`` axis (heavy per-layer psums) never crosses a host boundary, and the
-``dp`` gradient all-reduce decomposes into intra-host ICI reductions plus a
-single inter-host DCN exchange — XLA lowers the hierarchical reduction
-automatically once the device order encodes the topology.
+``dp`` gradient all-reduce decomposes into intra-host reductions plus a
+single inter-host exchange — NCCL picks the hierarchical algorithm once the
+device order encodes the topology.
 
 Launch recipe (N >= 2 hosts), e.g. with two processes::
 
@@ -28,9 +30,8 @@ and in ``train.py``::
     init_distributed()          # no-op when the env vars are absent
     mesh = make_pod_mesh(tp=1)  # dp spans hosts, host-major
 
-On Cloud TPU pod slices the coordinator/process variables are auto-detected
-by JAX itself, so ``init_distributed()`` with no arguments and no env vars
-defers to that auto-detection whenever more than one process is expected.
+JAX is told of a cluster only through these arguments or variables;
+``init_distributed()`` with neither is a single-process no-op.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from jax.sharding import Mesh
 __all__ = ("init_distributed", "make_pod_mesh", "pod_mesh_spec",
            "host_groups", "collective_groups",
            "assert_pod_collective_layout",
-           "assert_collective_compute_overlap", "tpu_aot_mesh")
+           "assert_collective_compute_overlap")
 
 _ENV_COORD = ("FEWBIT_COORDINATOR", "JAX_COORDINATOR_ADDRESS")
 _ENV_NPROC = ("FEWBIT_NUM_PROCESSES",)
@@ -102,11 +103,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def pod_mesh_spec(n_devices: int, tp: int = 1,
                   hosts: Optional[int] = None) -> Tuple[int, int, int]:
-    """Factorise a pod slice into ``(hosts, dp_per_host, tp)``.
+    """Factorise a device set into ``(hosts, dp_per_host, tp)``.
 
     Pure function (unit-testable without devices).  Invariants enforced:
     ``hosts * dp_per_host * tp == n_devices`` and ``tp`` divides the per-host
-    device count — the tensor-parallel axis must never cross the DCN
+    device count — the tensor-parallel axis must never cross a host
     boundary, where its per-layer psums would serialise on host links.
     """
     hosts = hosts or 1
@@ -119,7 +120,7 @@ def pod_mesh_spec(n_devices: int, tp: int = 1,
     if per_host % tp:
         raise ValueError(
             f"tp={tp} does not divide the {per_host} devices of one host; "
-            "tensor parallelism must stay inside a host's ICI domain")
+            "tensor parallelism must stay inside a host")
     return hosts, per_host // tp, tp
 
 
@@ -134,7 +135,7 @@ def host_groups(devices) -> list:
 def make_pod_mesh(tp: int = 1,
                   hosts: Optional[int] = None,
                   devices=None) -> Mesh:
-    """Host-major ``(dp, tp)`` mesh over a (multi-host) pod slice.
+    """Host-major ``(dp, tp)`` mesh over the devices of one or more hosts.
 
     ``devices`` defaults to the global ``jax.devices()`` (all hosts after
     :func:`init_distributed`).  ``hosts`` defaults to the number of distinct
@@ -144,8 +145,8 @@ def make_pod_mesh(tp: int = 1,
 
     Layout: devices of one host are reshaped to ``(dp_local, tp)``, then
     hosts stack along the leading (dp) axis — so every tp group lives inside
-    one host and the dp axis is contiguous per host, giving XLA a
-    hierarchical ICI-then-DCN gradient reduction.
+    one host and the dp axis is contiguous per host, giving a hierarchical
+    intra-host then inter-host gradient reduction.
     """
     devices = list(devices if devices is not None else jax.devices())
     groups = host_groups(devices)
@@ -178,8 +179,8 @@ def make_pod_mesh(tp: int = 1,
 # Compiled-HLO verification of the hierarchical collective layout.
 #
 # ``make_pod_mesh``'s docstring claims that with the host-major device order,
-# tp collectives stay inside one host's ICI domain and the dp gradient
-# all-reduce decomposes hierarchically over ICI then DCN.  These helpers turn
+# tp collectives stay inside one host and the dp gradient all-reduce
+# decomposes hierarchically, intra-host then inter-host.  These helpers turn
 # that claim into an assertion against the *compiled* executable: parse every
 # collective's replica groups out of the HLO text and check them against the
 # host partition.  Used by ``__graft_entry__.dryrun_multichip`` and
@@ -231,16 +232,17 @@ def collective_groups(hlo_text: str):
 
 def assert_pod_collective_layout(hlo_text: str, mesh: Mesh,
                                  host_of) -> dict:
-    """Assert the compiled collectives respect the ICI/DCN hierarchy.
+    """Assert the compiled collectives respect the host hierarchy.
 
     ``host_of``: device -> host index (for real pods ``d.process_index``;
     for a simulated partition, position in the original device order divided
     by the per-host count).  Every multi-participant collective group must
-    either (a) stay entirely inside one host — an ICI-only collective (the
+    either (a) stay entirely inside one host — an intra-host collective (the
     tp psums), or (b) touch *every* host with the *same* number of members
-    per host — the balanced shape XLA decomposes into intra-host ICI
-    reduction plus one inter-host DCN exchange.  A lopsided group (e.g. 3
-    members on one host, 1 on another) would serialise on DCN and fails.
+    per host — the balanced shape that decomposes into an intra-host
+    reduction plus one inter-host exchange.  A lopsided group (e.g. 3
+    members on one host, 1 on another) would serialise on the inter-host
+    links and fails.
 
     Returns ``{"intra_host": n, "cross_host": n}`` group counts so callers
     can additionally assert that both kinds exist where expected.
@@ -266,14 +268,14 @@ def assert_pod_collective_layout(hlo_text: str, mesh: Mesh,
             if len(hosts_hit) != n_hosts:
                 raise AssertionError(
                     f"{kind} group {group} spans {len(hosts_hit)} of "
-                    f"{n_hosts} hosts — neither ICI-local nor a full "
+                    f"{n_hosts} hosts — neither host-local nor a full "
                     "hierarchical reduction")
             per_host = set(hosts_hit.values())
             if len(per_host) != 1:
                 raise AssertionError(
                     f"{kind} group {group} is unbalanced across hosts "
-                    f"({hosts_hit}) — cannot decompose into ICI reduction "
-                    "+ one DCN exchange")
+                    f"({hosts_hit}) — cannot decompose into a host-local "
+                    "reduction + one inter-host exchange")
     return counts
 
 
@@ -281,17 +283,14 @@ def assert_pod_collective_layout(hlo_text: str, mesh: Mesh,
 # Collective/compute overlap, asserted from the *scheduled* executable.
 #
 # SURVEY §2.3 mandates the dp gradient all-reduce be overlapped against the
-# backward compute.  The TPU executable's post-optimisation module is
+# backward compute.  A compiled executable's post-optimisation module is
 # scheduled (``is_scheduled=true``: the printed instruction order of the
 # entry computation IS the execution order), so overlap is checkable: the
 # per-parameter gradient all-reduces must be issued as their operands become
 # ready — interleaved with the remaining backward/optimizer compute — rather
-# than serialised after the last compute op.  (Below HLO level, XLA's async
-# collective fusion runs the issued collective on the ICI/DMA engines while
-# the tensor core proceeds — the HLO schedule decides *what is available* to
-# overlap, which is what this asserts.)  Async start/done pairs, when the
-# backend emits them, are checked directly for compute between start and
-# done.
+# than serialised after the last compute op.  On the GPU, XLA emits async
+# ``all-reduce-start``/``-done`` pairs that NCCL runs on their own stream;
+# compute scheduled between a pair is overlapped with it.
 # ---------------------------------------------------------------------------
 
 _HEAVY_OPS = ("fusion(", " dot(", "convolution(", "custom-call(")
@@ -328,8 +327,7 @@ def assert_collective_compute_overlap(hlo_text: str,
     """Assert the scheduled module interleaves gradient collectives with
     compute.
 
-    Requires a scheduled module (TPU executables; AOT topology compiles
-    included).  Scalar all-reduces (the loss/metrics pmean — nothing to
+    Requires a scheduled module (``compiled.as_text()`` of an executable).  Scalar all-reduces (the loss/metrics pmean — nothing to
     overlap) are excluded, so the assertion is about the *gradient* ARs.
     Passes when (a) async ``all-reduce-start``/``-done`` pairs exist with
     compute scheduled between them, or (b) for sync ARs, at least
@@ -341,7 +339,7 @@ def assert_collective_compute_overlap(hlo_text: str,
     if "is_scheduled=true" not in hlo_text:
         raise AssertionError(
             "module is not scheduled — overlap cannot be asserted from it "
-            "(compile for a TPU target, e.g. via tpu_aot_mesh)")
+            "(pass the text of a compiled executable)")
     entry = _entry_instructions(hlo_text)
     starts = [i for i, l in enumerate(entry) if "all-reduce-start" in l
               and not _is_scalar_result(l)]
@@ -382,25 +380,3 @@ def assert_collective_compute_overlap(hlo_text: str,
             f"{frac:.0%} of {len(ars) + len(starts)} ARs have compute "
             f"scheduled after them (need >= {min_overlap_frac:.0%})")
     return result
-
-
-def tpu_aot_mesh(topology: str = "v5e:2x4",
-                 axis_names: Tuple[str, ...] = ("dp",),
-                 shape: Optional[Tuple[int, ...]] = None) -> Optional[Mesh]:
-    """Mesh over a *deviceless* TPU topology for AOT compile-only checks.
-
-    Lets CPU-only environments (the test suite, the driver dry run) compile
-    the real multi-chip TPU executable — scheduled HLO included — without
-    TPU hardware attached.  Returns None when no TPU compiler is reachable
-    (callers skip)."""
-    try:
-        from jax.experimental import topologies
-
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name=topology)
-        devices = np.array(topo.devices)
-    except Exception:  # noqa: BLE001 — no TPU plugin/compiler available
-        return None
-    if shape is not None:
-        devices = devices.reshape(shape)
-    return Mesh(devices, axis_names=axis_names)

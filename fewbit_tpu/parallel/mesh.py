@@ -1,16 +1,16 @@
-"""Device mesh + data-parallel training over TPU slices.
+"""Device mesh + data-parallel training.
 
 Net-new relative to the reference, which is strictly single-device (SURVEY.md
 §2.3): training scales over a ``jax.sharding.Mesh`` with ``shard_map`` —
 batches sharded along the ``dp`` axis, parameters replicated, gradients
-``pmean``-ed over ICI/DCN by XLA collectives.
+``pmean``-ed by XLA collectives (NCCL on GPUs).
 
 Key design point for the few-bit engine: the bitpacked residual codes are
 *produced inside* the shard-mapped step from the local activation shard, so
 they inherit the batch sharding for free and no resharding ever happens
 between forward and backward.  Sketch randomness folds the ``dp`` axis index
 into the key so every shard draws an independent projection (the
-TPU-idiomatic replacement for per-device torch Generator state).
+functional replacement for per-device torch Generator state).
 """
 
 from __future__ import annotations
@@ -24,10 +24,7 @@ import jax
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 stable name, experimental fallback for older versions
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 __all__ = ("make_mesh", "shard_batch", "replicate", "data_parallel_step",
            "fold_shard_key")

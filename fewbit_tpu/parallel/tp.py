@@ -9,6 +9,11 @@ row-parallel down projections with one psum per block — see
 * sharded parameters (q/k/v/intermediate kernels + their biases along the
   output dim; output/ffn_output kernels along the input dim) carry a ``tp``
   PartitionSpec entry; all other state is replicated;
+* the model marks where activations enter and leave the tp region with
+  :func:`tp_copy` (identity forward, psum backward: the input of a
+  column-parallel layer gathers its partial input gradients) and
+  :func:`tp_sum` (psum forward, identity backward: the partial products of
+  a row-parallel layer), Megatron's ``f`` and ``g``;
 * gradients are ``pmean``-ed over ``dp`` only — replicated parameters see
   identical gradients on every tp rank (the loss itself is tp-replicated),
   sharded parameters own their slice;
@@ -25,24 +30,65 @@ from functools import partial
 from typing import Tuple
 
 import jax
-import jax.numpy as jnp
 from jax import lax
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 import numpy as np
 
 __all__ = ("make_dp_tp_mesh", "tp_param_spec", "state_specs",
-           "init_dp_tp_state", "dp_tp_train_step")
+           "init_dp_tp_state", "dp_tp_train_step", "tp_copy", "tp_sum")
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(1,))
+def tp_copy(x: jax.Array, axis: str) -> jax.Array:
+    """Identity forward, psum over ``axis`` backward (Megatron's ``f``)."""
+    return x
+
+
+def _tp_copy_fwd(x, axis):
+    return x, None
+
+
+def _tp_copy_bwd(axis, _, g):
+    return (lax.psum(g, axis),)
+
+
+tp_copy.defvjp(_tp_copy_fwd, _tp_copy_bwd)
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _tp_sum(x, axis):
+    return lax.psum(x, axis)
+
+
+def _tp_sum_fwd(x, axis):
+    return lax.psum(x, axis), None
+
+
+def _tp_sum_bwd(axis, _, g):
+    return (g,)
+
+
+_tp_sum.defvjp(_tp_sum_fwd, _tp_sum_bwd)
+
+
+def tp_sum(x: jax.Array, axis: str) -> jax.Array:
+    """psum over ``axis`` forward, identity backward (Megatron's ``g``): the
+    cotangent of the replicated sum is already each rank's cotangent.
+    Identity when traced outside shard_map (abstract initialisation)."""
+    try:
+        return _tp_sum(x, axis)
+    except NameError:
+        return x
 
 # Parameter-name rules: (last-path-component of the owning module, leaf name)
 # -> which axis of the *unstacked* parameter is tp-sharded (None = replicated)
 _COLUMN_MODULES = ("query", "key", "value", "intermediate")
 _ROW_MODULES = ("output", "ffn_output")
+# The whole-FFN op keeps both projections under one name.
+_FFN_COLUMN = ("up_kernel", "up_bias")
+_FFN_ROW = ("down_kernel",)
 
 
 def make_dp_tp_mesh(dp: int, tp: int, devices=None) -> Mesh:
@@ -67,6 +113,10 @@ def tp_param_spec(path: Tuple, leaf) -> P:
             spec[-1] = "tp"          # (..., out_local)
     elif module in _ROW_MODULES and leaf_name == "kernel":
         spec[-2] = "tp"              # (..., in_local, out)
+    elif module == "ffn" and leaf_name in _FFN_COLUMN:
+        spec[-1] = "tp"
+    elif module == "ffn" and leaf_name in _FFN_ROW:
+        spec[-2] = "tp"
     return P(*spec)
 
 

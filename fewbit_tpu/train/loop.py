@@ -3,8 +3,10 @@
 The optimizer/schedule reproduces the reference's GLUE fine-tuning recipe
 (AdamW beta=(0.9, 0.98) eps=1e-6 weight-decay=0.1, polynomial decay with 6%
 warmup — ``notebooks/few-bit-backward/exp-fine-tuning-glue.py:240-257``),
-re-expressed in optax.  Checkpoint/resume — absent from the reference, which
-delegated to the HF Trainer — is first-class here via orbax.
+re-expressed in optax.  ``model`` is anything with the linen ``init`` /
+``apply`` convention: the plain-JAX RoBERTa, or a flax module.
+Checkpoint/resume — absent from the reference, which delegated to the HF
+Trainer — is first-class here via orbax, imported only when used.
 """
 
 from __future__ import annotations
@@ -13,11 +15,9 @@ import dataclasses
 from pathlib import Path
 from typing import Any, Callable, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
-from flax.training import train_state
 from jax import lax
 
 __all__ = ("TrainConfig", "TrainState", "make_schedule", "make_optimizer",
@@ -37,8 +37,35 @@ class TrainConfig:
     max_grad_norm: Optional[float] = None
 
 
-class TrainState(train_state.TrainState):
-    pass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Step counter, parameters and optimizer state as one pytree.
+
+    ``apply_fn`` and ``tx`` are static (not leaves), so a state can be a jit
+    argument and its spec tree can hold PartitionSpecs in the leaves."""
+
+    step: Any
+    params: Any
+    opt_state: Any
+    apply_fn: Callable = dataclasses.field(metadata=dict(static=True))
+    tx: optax.GradientTransformation = dataclasses.field(
+        metadata=dict(static=True))
+
+    @classmethod
+    def create(cls, *, apply_fn: Callable, params, tx) -> "TrainState":
+        return cls(step=jnp.zeros((), jnp.int32), params=params,
+                   opt_state=tx.init(params), apply_fn=apply_fn, tx=tx)
+
+    def apply_gradients(self, *, grads) -> "TrainState":
+        updates, opt_state = self.tx.update(grads, self.opt_state,
+                                            self.params)
+        return self.replace(step=self.step + 1,
+                            params=optax.apply_updates(self.params, updates),
+                            opt_state=opt_state)
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def make_schedule(cfg: TrainConfig) -> optax.Schedule:
@@ -58,7 +85,7 @@ def make_optimizer(cfg: TrainConfig) -> optax.GradientTransformation:
     return tx
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig, sample_batch,
+def create_train_state(model, cfg: TrainConfig, sample_batch,
                        seed: int = 0) -> TrainState:
     init_key = jax.random.key(seed)
     params = model.init(
@@ -99,7 +126,7 @@ def causal_lm_loss(logits: jax.Array, labels: jax.Array) -> jax.Array:
 causal_lm_loss.sum_count = _causal_lm_sum_count
 
 
-def make_train_step(model: nn.Module, dp_axis: Optional[str] = None,
+def make_train_step(model, dp_axis: Optional[str] = None,
                     loss_fn: Callable = classification_loss) -> Callable:
     """Build ``step(state, batch, key) -> (state, metrics)``.
 
@@ -141,7 +168,7 @@ def make_train_step(model: nn.Module, dp_axis: Optional[str] = None,
     return step
 
 
-def make_eval_step(model: nn.Module) -> Callable:
+def make_eval_step(model) -> Callable:
 
     @jax.jit
     def step(state: TrainState, batch):

@@ -15,40 +15,41 @@ tensors (``util.py:20-144``), the JAX equivalents are *exact and static*:
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import re
+from pathlib import Path
 from typing import Any, Callable, Iterator, Optional
 
 import jax
 import numpy as np
 
-try:
-    import flax.linen as nn
-    import dataclasses
-    _HAS_FLAX = True
-except ImportError:  # pragma: no cover
-    _HAS_FLAX = False
-
 __all__ = ("map_module", "convert_linear", "residual_shapes",
            "estimate_memory_usage", "memory_delta_bytes",
            "device_memory_stats", "peak_memory_bytes", "profile_trace",
-           "compiled_memory_stats", "tpu_compile_options")
+           "compiled_memory_stats", "setup_compile_cache")
 
 
-def tpu_compile_options(scoped_vmem_kib: int = 96 * 1024) -> dict:
-    """Compiler options for ``jitted.lower(...).compile(compiler_options=…)``
-    on TPU backends.
+def setup_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache for an entry-point script.
 
-    XLA's scoped-VMEM pass defaults to a 16 MiB stack budget, which the
-    fused FFN-sketch kernels exceed at large batch (their ``(k_eff, bm)``
-    accumulator block scales with the sketch size).  The Pallas-level
-    ``vmem_limit_bytes`` (see ``ops.pallas_kernels.VMEM_LIMIT``) governs the
-    kernel body only; the fusion *around* the custom call is governed by
-    ``xla_tpu_scoped_vmem_limit_kib``, settable per-compile here (the
-    client-side XLA_FLAGS parser rejects it as unknown).  Returns ``{}`` on
-    non-TPU backends, where the option is meaningless."""
-    if jax.default_backend() != "tpu":
-        return {}
-    return {"xla_tpu_scoped_vmem_limit_kib": str(scoped_vmem_kib)}
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is used as it is (JAX reads it
+    itself) and nothing else is set.  Otherwise the cache lives at the fixed
+    path ``<checkout>/.jax_cache`` (listed in ``.gitignore``): the path is
+    part of the cache key, so a cache that moves never hits.  The library
+    never calls this on import; entry points do.  Returns the directory."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    path = str(Path(__file__).resolve().parent.parent / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def _nn():
+    import flax.linen as nn
+
+    return nn
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +58,7 @@ def tpu_compile_options(scoped_vmem_kib: int = 96 * 1024) -> dict:
 
 
 def _map_value(value, func, patt, path):
-    if _HAS_FLAX and isinstance(value, nn.Module):
+    if isinstance(value, _nn().Module):
         return _map_module(value, func, patt, path)
     if isinstance(value, (list, tuple)):
         mapped = [_map_value(v, func, patt, f"{path}/{i}")
@@ -87,7 +88,7 @@ def _map_module(root, func, patt, path):
         root = root.clone(**updates)
     if patt.match(path or "/"):
         root = func(root, path or "/")
-        if not isinstance(root, nn.Module):
+        if not isinstance(root, _nn().Module):
             raise ValueError("map_module callback must return a Module")
     return root
 
@@ -103,8 +104,6 @@ def map_module(root: "nn.Module",
     inside ``@nn.compact`` bodies are invisible to any tree walk — define
     them as fields to make them rewritable.
     """
-    if not _HAS_FLAX:
-        raise RuntimeError("map_module requires flax")
     return _map_module(root, func, re.compile(patt or r".*"), "")
 
 
@@ -115,7 +114,7 @@ def convert_linear(module: "nn.Module", ctor: Callable, **kwargs):
     The replacement keeps the ``kernel``/``bias`` parameter names, so an
     existing parameter tree loads into the converted model unchanged.
     """
-    if not isinstance(module, nn.Dense):
+    if not isinstance(module, _nn().Dense):
         return module
     return ctor(features=module.features,
                 use_bias=module.use_bias,

@@ -1,7 +1,7 @@
 // Host-side native codec for fewbit-tpu.
 //
-// The TPU compute path packs activation codes with fused Pallas kernels
-// (fewbit_tpu/ops/pallas_kernels.py); this library is the *host* runtime
+// The device compute path packs activation codes in the codec
+// (fewbit_tpu/ops/codec.py); this library is the *host* runtime
 // counterpart — the role the reference's C++ stream codec plays on CPU
 // (/root/reference/fewbit/cpu/codec.h:33-106), rebuilt for this package's
 // bit-plane layout and for throughput (multi-threaded, word-oriented):

@@ -1,6 +1,6 @@
 """Multi-host bootstrap + pod-mesh layout (single-process, virtual devices).
 
-The DCN-aware layout invariants are checked structurally (no multi-host
+The host-aware layout invariants are checked structurally (no multi-host
 hardware needed): tp groups never span a simulated host, the dp axis is
 host-major, and a dp x tp training step on the pod mesh matches the plain
 mesh numerically.
@@ -30,7 +30,7 @@ def test_pod_mesh_spec_rejects_bad_partitions():
     with pytest.raises(ValueError):
         pod_mesh_spec(8, tp=3, hosts=2)  # tp doesn't divide per-host count
     with pytest.raises(ValueError):
-        pod_mesh_spec(8, tp=8, hosts=2)  # tp would cross the DCN boundary
+        pod_mesh_spec(8, tp=8, hosts=2)  # tp would cross a host boundary
     with pytest.raises(ValueError):
         pod_mesh_spec(8, tp=0)
 
@@ -147,9 +147,10 @@ def test_pod_collective_layout_rejects_lopsided_groups():
 
 def test_pod_mesh_step_collectives_are_hierarchical():
     """The COMPILED dp x tp pod-mesh training step's collectives respect the
-    ICI/DCN hierarchy: tp psums stay inside a simulated host, the dp
+    host hierarchy: tp psums stay inside a simulated host, the dp
     gradient all-reduce touches both hosts with equal membership (the shape
-    XLA decomposes into ICI reduction + one DCN exchange) — the
+    that decomposes into an intra-host reduction + one inter-host exchange)
+    — the
     `parallel/distributed.py` layout claim, verified from the executable."""
     from fewbit_tpu.models import RobertaConfig, \
         RobertaForSequenceClassification
@@ -178,7 +179,7 @@ def test_pod_mesh_step_collectives_are_hierarchical():
     pos = {id(d): i for i, d in enumerate(devices)}
     counts = assert_pod_collective_layout(
         hlo, mesh, host_of=lambda d: pos[id(d)] // 4)
-    assert counts["intra_host"] > 0, "expected ICI-local tp psums"
+    assert counts["intra_host"] > 0, "expected host-local tp psums"
     assert counts["cross_host"] > 0, "expected a cross-host dp all-reduce"
 
 
@@ -217,23 +218,18 @@ def test_overlap_assertion_logic():
     assert res["compute_between_async"] == 1
 
 
-def test_dp_allreduce_overlaps_backward_on_tpu_schedule():
-    """SURVEY §2.3's last open item: the dp gradient all-reduces must be
-    scheduled interleaved with compute, not serialised after it.  Compiles
-    the REAL dp training step for a deviceless v5e:2x4 TPU topology (the
-    scheduled executable of the actual multi-chip target, no hardware
-    needed) and asserts overlap from the instruction schedule."""
+def test_dp_allreduce_overlaps_backward_in_schedule():
+    """The real dp train step, compiled for the virtual 8-device mesh (a
+    scheduled executable like the GPU's): the gradient all-reduces are
+    issued as their operands become ready, interleaved with compute."""
     from fewbit_tpu.models import RobertaConfig, \
         RobertaForSequenceClassification
     from fewbit_tpu.parallel import (assert_collective_compute_overlap,
-                                     data_parallel_step, tpu_aot_mesh)
+                                     data_parallel_step, make_mesh)
     from fewbit_tpu.train import (TrainConfig, create_train_state,
                                   make_train_step, synthetic_glue)
 
-    mesh = tpu_aot_mesh("v5e:2x4")
-    if mesh is None:
-        pytest.skip("no TPU compiler reachable for AOT topology compile")
-
+    mesh = make_mesh()
     cfg = RobertaConfig(vocab_size=512, hidden_size=128, num_layers=2,
                         num_heads=2, intermediate_size=512,
                         max_position_embeddings=66, num_labels=2,

@@ -1,5 +1,5 @@
-"""Fully-fused FFN block: forward exactness, LUT gradient semantics,
-Pallas(interpret)-vs-jnp parity including the in-kernel countsketches,
+"""Whole FFN block op: forward exactness, LUT gradient semantics, the codec
+kernel inside the op, the stored countsketches against a numpy reference,
 Monte-Carlo unbiasedness of both weight-gradient estimators, residual
 accounting."""
 
@@ -118,112 +118,79 @@ class TestResiduals:
         biggest = max(l.size * l.dtype.itemsize for l in leaves)
         # Largest residual: the packed codes (3/8 B per pre-activation
         # element) or a (k, M) sketch — never an (n, M) or (n, K) tensor.
-        k = max(410, 512)  # kernel path may round buckets up to 512
+        k = 512  # the stride partition may round buckets up
         cap = max(3 * n * M // 8, k * M * 4) + 4096
         assert biggest <= cap, biggest
 
 
-class TestPallasParity:
+def _residuals(*args):
+    """(packed codes, sketch of x, sketch of y) from the op's VJP closure,
+    found by dtype and shape."""
+    from fewbit_tpu.functional.ffn import _keff
 
-    def test_interpret_matches_jnp(self, monkeypatch):
-        # Shapes inside the kernel envelope: n % 512 == 0, dims % 128 == 0.
-        n = 1024
-        rng = np.random.RandomState(1)
-        x = jnp.asarray(rng.randn(n, 256), jnp.float32)
-        wu = jnp.asarray(rng.randn(256, 512) * 0.05, jnp.float32)
-        bu = jnp.asarray(rng.randn(512) * 0.05, jnp.float32)
-        wd = jnp.asarray(rng.randn(512, 256) * 0.05, jnp.float32)
-        bd = jnp.asarray(rng.randn(256) * 0.05, jnp.float32)
-        g = jnp.asarray(rng.randn(n, 256), jnp.float32)
+    _, vjp = jax.vjp(ffn, *args)
+    leaves = jax.tree.leaves(vjp)
+    k_eff = _keff(N, int(0.25 * N))
+    [packed] = [l for l in leaves if l.dtype == jnp.uint32]
+    [sk_x] = [l for l in leaves if l.shape == (k_eff, K)]
+    [sk_y] = [l for l in leaves if l.shape == (k_eff, M)]
+    return packed, sk_x, sk_y, vjp
+
+
+def _countsketch_numpy(mat, sigma, k_eff):
+    """Row r of ``mat`` times sign r, summed into bucket r % k_eff."""
+    mat = np.asarray(mat, np.float64) * np.asarray(sigma, np.float64)[:, None]
+    out = np.zeros((k_eff, mat.shape[1]))
+    np.add.at(out, np.arange(mat.shape[0]) % k_eff, mat)
+    return out
+
+
+class TestCodecInsideTheOp:
+
+    def test_kernel_codec_matches_plain(self, kernel_codec):
+        """The op through the Triton codec (interpret mode) gives the plain
+        path's outputs and gradients bit for bit."""
+        g = jnp.asarray(np.random.RandomState(1).randn(N, H), jnp.float32)
 
         def run():
-            y, vjp = jax.vjp(
-                lambda *a: F.fewbit_ffn(*a, KEY, bits=3,
-                                        proj_dim_ratio=0.25),
-                x, wu, bu, wd, bd)
+            y, vjp = jax.vjp(ffn, X, WU, BU, WD, BD)
             return (y, *vjp(g))
 
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        pallas = run()
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "0")
-        ref = run()
-        names = ["y", "dx", "dwu", "dbu", "dwd", "dbd"]
-        for name, a, b in zip(names, pallas, ref):
-            np.testing.assert_allclose(
-                np.asarray(a, np.float32), np.asarray(b, np.float32),
-                atol=5e-2, rtol=2e-2, err_msg=name)
+        kernel = run()
+        kernel_codec.forward = kernel_codec.plain_forward
+        plain = run()
+        for name, a, b in zip(["y", "dx", "dwu", "dbu", "dwd", "dbd"],
+                              kernel, plain):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=name)
 
-    def test_interpret_sketches_match_jnp_exactly(self, monkeypatch):
-        """The in-kernel countsketch must equal the jnp signed bucket sum
-        bit-for-... well, to f32 accumulation order."""
-        from fewbit_tpu.functional.ffn import (_countsketch_signed, _signs)
-        from fewbit_tpu.ops import pallas_kernels as pk
-        from fewbit_tpu.functional.activations import resolve_activation
-
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        n, kdim, m = 1024, 256, 512
-        rng = np.random.RandomState(2)
-        x = jnp.asarray(rng.randn(n, kdim), jnp.float32)
-        wu = jnp.asarray(rng.randn(kdim, m) * 0.05, jnp.float32)
-        spec, b_arr, v_arr = resolve_activation("gelu", bits=3)
-        sigma = _signs(jax.random.key(3), n)
-        k_eff = pk.countsketch_aligned_keff(n, 256)
-        assert k_eff == 512
-        out = pk.fused_dense_act_sketch(spec, x, wu, None, b_arr, sigma,
-                                        k_eff, y_dtype=jnp.float32)
-        assert out is not None
-        y, packed, sk = out
-        ref = _countsketch_signed(y, sigma, k_eff)
-        np.testing.assert_allclose(np.asarray(sk), np.asarray(ref),
-                                   atol=1e-3, rtol=1e-4)
-
-        # With sigma_x, the kernel also emits the input countsketch (riding
-        # its own read of x) — must equal the jnp bucket sum of x.
-        sigma_x = _signs(jax.random.key(5), n)
-        out2 = pk.fused_dense_act_sketch(spec, x, wu, None, b_arr, sigma,
-                                         k_eff, y_dtype=jnp.float32,
-                                         sigma_x=sigma_x)
-        assert out2 is not None and len(out2) == 4
-        y2, packed2, sk2, skx = out2
-        np.testing.assert_allclose(np.asarray(y2), np.asarray(y))
-        np.testing.assert_allclose(np.asarray(sk2), np.asarray(sk))
-        ref_x = _countsketch_signed(x, sigma_x, k_eff)
-        np.testing.assert_allclose(np.asarray(skx), np.asarray(ref_x),
-                                   atol=1e-3, rtol=1e-4)
-
-
-    def test_bf16_model_stores_bf16_sketches(self, monkeypatch):
-        """Round-5 sketch-dtype policy through the kernels (interpret mode):
-        bf16 inputs -> bf16 sketch outputs from fused_dense_act_sketch,
-        fused_matmul_lut_backward, and fused_matmul_input_sketch; f32
-        inputs keep f32 sketches."""
+    def test_stored_sketches_match_numpy(self):
+        """The residual sketches are the signed stride-partition bucket sums
+        of x and of y = gelu(x W_up + b_up), with the op's own signs."""
         from fewbit_tpu.functional.ffn import _signs
-        from fewbit_tpu.functional.activations import resolve_activation
-        from fewbit_tpu.ops import pallas_kernels as pk
 
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        n, kdim, m = 1024, 256, 512
-        rng = np.random.RandomState(7)
-        spec, b_arr, v_arr = resolve_activation("gelu", bits=3)
-        sigma = _signs(jax.random.key(1), n)
-        k_eff = pk.countsketch_aligned_keff(n, 256)
-        for dt in (jnp.float32, jnp.bfloat16):
-            want = pk.sketch_dtype(dt)
-            x = jnp.asarray(rng.randn(n, kdim), dt)
-            wu = jnp.asarray(rng.randn(kdim, m) * 0.05, dt)
-            y, packed, sk = pk.fused_dense_act_sketch(
-                spec, x, wu, None, b_arr, sigma, k_eff)
-            assert sk.dtype == want, dt
-            g = jnp.asarray(rng.randn(n, kdim), dt)
-            wt = jnp.asarray(rng.randn(kdim, m) * 0.05, dt)
-            dz, sk2, db = pk.fused_matmul_lut_backward(
-                spec, packed, v_arr, g, wt, sigma, k_eff,
-                sk_dtype=pk.sketch_dtype(dt))
-            assert sk2.dtype == want and db.dtype == jnp.float32
-            out = pk.fused_matmul_input_sketch(
-                x, jnp.asarray(rng.randn(kdim, 512) * 0.05, dt), None,
-                sigma, 512)
-            assert out is not None and out[1].dtype == want
+        packed, sk_x, sk_y, _ = _residuals(X, WU, BU, WD, BD)
+        k_eff = sk_x.shape[0]
+        sig_up = _signs(jax.random.fold_in(KEY, 0), N)
+        sig_down = _signs(jax.random.fold_in(KEY, 1), N)
+        y = jax.nn.gelu(X @ WU + BU, approximate=False)
+        np.testing.assert_allclose(np.asarray(sk_x),
+                                   _countsketch_numpy(X, sig_up, k_eff),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(sk_y),
+                                   _countsketch_numpy(y, sig_down, k_eff),
+                                   rtol=1e-4, atol=1e-4)
+        assert packed.shape == (3, N * M // 32)
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_sketch_storage_follows_model_dtype(self, dtype):
+        """bf16 models store bf16 sketches, f32 models f32; the packed
+        codes are uint32 either way."""
+        args = [a.astype(dtype) for a in (X, WU, BU, WD, BD)]
+        packed, sk_x, sk_y, vjp = _residuals(*args)
+        assert sk_x.dtype == dtype and sk_y.dtype == dtype
+        grads = vjp(jnp.ones((N, H), dtype))
+        assert all(g.dtype == dtype for g in grads)
 
 
 class TestModule:

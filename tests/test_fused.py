@@ -1,5 +1,5 @@
 """Fused dense + activation op: forward exactness, gradient semantics,
-megakernel (interpret mode) parity with the jnp path, residual accounting."""
+the codec kernel (interpret mode) inside the op, residual accounting."""
 
 import numpy as np
 import pytest
@@ -97,25 +97,20 @@ class TestFunctional:
                                    atol=1e-4)
 
 
-class TestMegakernel:
+class TestCodecInsideTheOp:
 
-    def test_interpret_matches_jnp(self, monkeypatch):
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        y_pal, vjp = jax.vjp(
-            lambda x, w, b: F.fewbit_dense_act(x, w, b, bits=3), X, W, B)
-        dx_p, dw_p, db_p = vjp(jnp.ones_like(y_pal))
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "0")
-        y_jnp, vjp = jax.vjp(
-            lambda x, w, b: F.fewbit_dense_act(x, w, b, bits=3), X, W, B)
-        dx_j, dw_j, db_j = vjp(jnp.ones_like(y_jnp))
-        np.testing.assert_allclose(np.asarray(y_pal), np.asarray(y_jnp),
-                                   atol=2e-5)
-        np.testing.assert_allclose(np.asarray(dx_p), np.asarray(dx_j),
-                                   atol=2e-4, rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(dw_p), np.asarray(dw_j),
-                                   atol=2e-3, rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(db_p), np.asarray(db_j),
-                                   atol=2e-4, rtol=1e-4)
+    def test_kernel_codec_matches_plain(self, kernel_codec):
+        def run():
+            y, vjp = jax.vjp(
+                lambda x, w, b: F.fewbit_dense_act(x, w, b, bits=3), X, W, B)
+            return (y, *vjp(jnp.ones_like(y)))
+
+        kernel = run()
+        kernel_codec.forward = kernel_codec.plain_forward
+        plain = run()
+        for name, a, b in zip(["y", "dx", "dw", "db"], kernel, plain):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=name)
 
 
 class TestModule:

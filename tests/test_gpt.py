@@ -158,14 +158,6 @@ class TestGPT:
         assert int(jax.device_get(new_state.step)) == 1
 
 
-def test_flash_attention_requires_zero_attention_dropout():
-    with pytest.raises(ValueError, match="attention dropout"):
-        GPTConfig(**{**TINY.__dict__, "flash_attention": True})
-    cfg = GPTConfig(**{**TINY.__dict__, "flash_attention": True,
-                       "attention_dropout": 0.0})
-    assert cfg.flash_attention
-
-
 def test_sequence_length_guard():
     model = GPTForCausalLM(TINY)
     too_long = jnp.zeros((2, TINY.max_position_embeddings + 1), jnp.int32)

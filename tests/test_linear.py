@@ -210,86 +210,62 @@ class TestVariance:
         np.testing.assert_allclose(np.asarray(storage.grad_output), 2.0)
 
 
-class TestFusedInputSketch:
-    """Pallas(interpret) parity for the fused matmul + input-countsketch
-    path that RandomizedDense's countsketch VJP engages on TPU
-    (functional/linear.py:_fused_cs_keff)."""
+class TestCountsketchLinear:
+    """RandomizedDense's countsketch VJP on the plain path: exact forward
+    and input gradient, and a weight gradient that is the product of the
+    two stride-partition sketches built with the same signs."""
 
     N, KDIM, M = 2048, 256, 384
-    K = 400  # -> k_eff = 512 (aligned up, never less accurate)
+    K = 400  # -> k_eff = 512 (rounded up, never less accurate)
 
-    def _data(self):
+    def _data(self, m=None):
         rng = np.random.RandomState(5)
+        m = m or self.M
         x = jnp.asarray(rng.randn(self.N, self.KDIM), jnp.float32)
-        kernel = jnp.asarray(rng.randn(self.KDIM, self.M) * 0.05,
-                             jnp.float32)
-        b = jnp.asarray(rng.randn(self.M) * 0.05, jnp.float32)
-        g = jnp.asarray(rng.randn(self.N, self.M), jnp.float32)
+        kernel = jnp.asarray(rng.randn(self.KDIM, m) * 0.05, jnp.float32)
+        b = jnp.asarray(rng.randn(m) * 0.05, jnp.float32)
+        g = jnp.asarray(rng.randn(self.N, m), jnp.float32)
         return x, kernel, b, g
 
-    def test_engages_inside_envelope(self, monkeypatch):
-        from fewbit_tpu.functional.linear import (_fused_cs_keff,
-                                                  _GRPConfig)
+    def test_partition_rounds_up_to_an_exact_divisor(self):
+        from fewbit_tpu.functional.linear import _countsketch_partition
 
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        cfg = _GRPConfig(proj_features=self.K, matmul="countsketch",
-                         has_bias=True)
-        assert _fused_cs_keff(cfg, self.N, self.KDIM, self.M,
-                              jnp.float32.dtype) == 512
-        # Other sketch kinds and off-envelope shapes must fall back.
-        cfg_g = _GRPConfig(proj_features=self.K, matmul="gaussian",
-                           has_bias=True)
-        assert _fused_cs_keff(cfg_g, self.N, self.KDIM, self.M,
-                              jnp.float32.dtype) is None
-        assert _fused_cs_keff(cfg, self.N - 8, self.KDIM, self.M,
-                              jnp.float32.dtype) is None
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "0")
-        assert _fused_cs_keff(cfg, self.N, self.KDIM, self.M,
-                              jnp.float32.dtype) is None
+        assert _countsketch_partition(self.N, self.K) == (4, 512)
+        assert _countsketch_partition(1024, 2048) == (1, 1024)
+        # No exact divisor within 2x the request: fold the tail instead.
+        assert _countsketch_partition(1031, 100) is None
 
-    def test_vjp_matches_jnp_mirror(self, monkeypatch):
-        """Fused y/dx/db must equal the exact values; dW must equal the
-        jnp countsketch estimate built with the SAME k_eff partition and
-        signs (interpret mode keeps f32, so tolerances are tight)."""
+    @pytest.mark.parametrize("m", [384, 1536], ids=["narrow", "ffn_width"])
+    def test_vjp_matches_reference(self, m):
         from fewbit_tpu.functional.linear import _cs_signs
 
-        x, kernel, b, g = self._data()
+        x, kernel, b, g = self._data(m)
         key = jax.random.key(7)
+        y, vjp = jax.vjp(lambda xx, ww, bb: F.linear_grp_native(
+            xx, ww, bb, key, proj_dim=self.K, matmul="countsketch"),
+            x, kernel, b)
+        dx, dw, db = vjp(g)
         k_eff = 512
+        sigma = np.asarray(_cs_signs(key, self.N, jnp.float32))
+        xs = np.asarray(x, np.float64) * sigma[:, None]
+        gs = np.asarray(g, np.float64) * sigma[:, None]
+        sk_x = xs.reshape(-1, k_eff, self.KDIM).sum(0)
+        sk_g = gs.reshape(-1, k_eff, m).sum(0)
+        np.testing.assert_allclose(y, x @ kernel + b, rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(dx, g @ kernel.T, rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(db, g.sum(0), rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(dw, sk_x.T @ sk_g, rtol=1e-4, atol=1e-2)
 
-        def run():
-            y, vjp = jax.vjp(
-                lambda xx, ww, bb: F.linear_grp_native(
-                    xx, ww, bb, key, proj_dim=self.K,
-                    matmul="countsketch"), x, kernel, b)
-            return (y, *vjp(g))
-
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        y_f, dx_f, dw_f, db_f = run()
-
-        sigma = _cs_signs(key, self.N, jnp.float32)
-        sk_x = (x * sigma[:, None]).reshape(-1, k_eff, self.KDIM).sum(0)
-        sk_g = (g * sigma[:, None]).reshape(-1, k_eff, self.M).sum(0)
-        np.testing.assert_allclose(y_f, x @ kernel + b, rtol=1e-5,
-                                   atol=1e-4)
-        np.testing.assert_allclose(dx_f, g @ kernel.T, rtol=1e-5,
-                                   atol=1e-4)
-        np.testing.assert_allclose(db_f, g.sum(0), rtol=1e-5, atol=1e-3)
-        np.testing.assert_allclose(dw_f, sk_x.T @ sk_g, rtol=1e-4,
-                                   atol=1e-2)
-
-    def test_weight_grad_unbiased_fused(self, monkeypatch):
-        """The fused estimator must stay unbiased: averaging dW over many
-        keys converges to the exact gradient (same MC protocol as the
-        unfused TestLinearGRP check, tighter shapes for speed)."""
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
+    def test_weight_grad_unbiased(self):
+        """Averaging dW over many keys converges to the exact gradient."""
         n, kdim, m = 1024, 128, 128
         rng = np.random.RandomState(11)
         x = jnp.asarray(rng.randn(n, kdim), jnp.float32)
         kernel = jnp.asarray(rng.randn(kdim, m) * 0.1, jnp.float32)
 
         def loss(w, key):
-            return F.linear_grp_native(x, w, None, key, proj_dim=256,
+            # 512 buckets: half the batch.
+            return F.linear_grp_native(x, w, None, key, proj_dim=512,
                                        matmul="countsketch").sum()
 
         grad_fn = jax.jit(jax.grad(loss))
@@ -299,49 +275,18 @@ class TestFusedInputSketch:
         for i in range(repeats):
             acc = acc + grad_fn(kernel, jax.random.key(i))
         approx = acc / repeats
-        # exact dW = x^T @ ones; correlation must be high and the residual
-        # must shrink vs a single draw.
         corr = jnp.sum(approx * exact) / (
             jnp.linalg.norm(approx) * jnp.linalg.norm(exact))
         assert float(corr) > 0.99
 
-    def test_ffn_width_falls_back(self, monkeypatch):
-        """FFN-width shapes (> 1024) must NOT engage the fused kernel —
-        measured slower there than XLA's matmul + separate sketch (see
-        matmul_sketch_keff width caps) — but the raw kernel itself must
-        still be numerically correct if called directly."""
-        from fewbit_tpu.functional.linear import _fused_cs_keff, _GRPConfig
-        from fewbit_tpu.ops import pallas_kernels as pk
-
-        monkeypatch.setenv("FEWBIT_TPU_NATIVE", "interpret")
-        cfg = _GRPConfig(proj_features=200, matmul="countsketch",
-                         has_bias=True)
-        assert _fused_cs_keff(cfg, 1024, 128, 1536,
-                              jnp.float32.dtype) is None
-        # Direct kernel call with an in-envelope k_eff stays exact.
-        n, kdim, m, k_eff = 1024, 128, 512, 512
-        rng = np.random.RandomState(9)
-        x = jnp.asarray(rng.randn(n, kdim), jnp.float32)
-        w = jnp.asarray(rng.randn(kdim, m) * 0.05, jnp.float32)
-        sigma = jnp.asarray(rng.choice([-1.0, 1.0], n), jnp.float32)
-        out = pk.fused_matmul_input_sketch(x, w, None, sigma, k_eff,
-                                           want_colsum=True)
-        assert out is not None
-        y, sk, cs = out
-        np.testing.assert_allclose(y, x @ w, rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(
-            sk, (x * sigma[:, None]).reshape(-1, k_eff, kdim).sum(0),
-            rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(cs, x.sum(0), rtol=1e-4, atol=5e-3)
-
 
 class TestSketchDtypePolicy:
-    """bf16 models store bf16 sketch residuals (round-5 policy); f32 models
-    keep f32.  Pinned here so a refactor cannot silently revert the bf16
-    memory saving the policy buys (docs/BENCHMARKS.md bf16 section)."""
+    """bf16 models store bf16 sketch residuals; f32 models keep f32.
+    Pinned here so a refactor cannot silently revert the bf16 memory saving
+    the policy buys."""
 
     def test_policy_function(self):
-        from fewbit_tpu.ops.pallas_kernels import sketch_dtype
+        from fewbit_tpu.functional.linear import sketch_dtype
 
         assert sketch_dtype(jnp.float32) == jnp.float32.dtype
         assert sketch_dtype(jnp.bfloat16) == jnp.bfloat16.dtype

@@ -69,20 +69,6 @@ class TestRoberta:
                            batch["attention_mask"])
         np.testing.assert_allclose(np.asarray(la), np.asarray(lb), atol=1e-5)
 
-    def test_flash_attention_flag_falls_back_off_tpu(self):
-        # On CPU the flag must silently use the standard path with
-        # identical numerics.
-        cfg = RobertaConfig(**{**TINY.__dict__, "flash_attention": True,
-                               "attention_dropout": 0.0})
-        model = RobertaForSequenceClassification(cfg)
-        ref = RobertaForSequenceClassification(TINY)
-        batch = tiny_batch()
-        params = ref.init(jax.random.key(0), batch["input_ids"],
-                          batch["attention_mask"])
-        a = model.apply(params, batch["input_ids"], batch["attention_mask"])
-        b = ref.apply(params, batch["input_ids"], batch["attention_mask"])
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
     def test_bf16_activations(self):
         cfg = RobertaConfig(**{**TINY.__dict__, "gelu_bits": 3,
                                "proj_dim_ratio": 0.25,
@@ -193,95 +179,161 @@ class TestTrainLoop:
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_flash_attention_requires_zero_attention_dropout():
-    with pytest.raises(ValueError, match="attention dropout"):
-        RobertaConfig(**{**TINY.__dict__, "flash_attention": True})
-    cfg = RobertaConfig(**{**TINY.__dict__, "flash_attention": True,
-                           "attention_dropout": 0.0})
-    assert cfg.flash_attention
+class TestPlainRoberta:
+    """The plain-JAX RoBERTa keeps the linen calling convention and
+    parameter paths."""
+
+    @staticmethod
+    def paths(tree):
+        return sorted(jax.tree_util.keystr(p)
+                      for p, _ in jax.tree_util.tree_leaves_with_path(tree))
+
+    LAYER = ["['attention']['key']['bias']", "['attention']['key']['kernel']",
+             "['attention']['output']['bias']",
+             "['attention']['output']['kernel']",
+             "['attention']['query']['bias']",
+             "['attention']['query']['kernel']",
+             "['attention']['value']['bias']",
+             "['attention']['value']['kernel']",
+             "['attention_norm']['bias']", "['attention_norm']['scale']"]
+
+    @pytest.mark.parametrize("kw,ffn", [
+        ({}, ["['ffn_output']['bias']", "['ffn_output']['kernel']",
+              "['intermediate']['bias']", "['intermediate']['kernel']"]),
+        ({"gelu_bits": 3, "proj_dim_ratio": 0.25, "sketch": "countsketch"},
+         ["['ffn']['down_bias']", "['ffn']['down_kernel']",
+          "['ffn']['up_bias']", "['ffn']['up_kernel']"]),
+    ], ids=["dense", "whole_ffn"])
+    def test_parameter_paths_and_shapes(self, kw, ffn):
+        cfg = RobertaConfig(**{**TINY.__dict__, **kw})
+        params = RobertaForSequenceClassification(cfg).init(
+            jax.random.key(0))["params"]
+        layer = sorted(self.LAYER + ffn + ["['output_norm']['bias']",
+                                           "['output_norm']['scale']"])
+        emb = ["['embeddings']['layer_norm']['bias']",
+               "['embeddings']['layer_norm']['scale']",
+               "['embeddings']['position_embeddings']['embedding']",
+               "['embeddings']['token_type_embeddings']['embedding']",
+               "['embeddings']['word_embeddings']['embedding']"]
+        want = sorted(["['head_dense']['bias']", "['head_dense']['kernel']",
+                       "['head_out']['bias']", "['head_out']['kernel']"]
+                      + ["['roberta']" + p for p in emb]
+                      + ["['roberta']['layers']" + p for p in layer])
+        assert self.paths(params) == want
+        layers = params["roberta"]["layers"]
+        # Stacked layer axis first, (in, out) kernels after it.
+        assert layers["attention"]["query"]["kernel"].shape == (2, 32, 32)
+        first = "ffn" if "ffn" in layers else "intermediate"
+        kernel = layers[first].get("up_kernel", layers[first].get("kernel"))
+        assert kernel.shape == (2, 32, 64)
+        assert params["roberta"]["embeddings"]["word_embeddings"][
+            "embedding"].shape == (128, 32)
+        assert all(l.dtype == jnp.float32 for l in jax.tree.leaves(params))
+
+    def test_unscanned_layers_are_named_per_layer(self):
+        cfg = RobertaConfig(**{**TINY.__dict__, "scan_layers": False})
+        model = RobertaForSequenceClassification(cfg)
+        params = model.init(jax.random.key(0))
+        assert {"layer_0", "layer_1"} <= set(params["params"]["roberta"])
+        batch = tiny_batch()
+        out = model.apply(params, batch["input_ids"],
+                          batch["attention_mask"])
+        assert out.shape == (4, 2)
+
+    def test_tp_paths_split_the_row_parallel_biases(self):
+        cfg = RobertaConfig(**{**TINY.__dict__, "tp_axis": "tp",
+                               "tp_size": 2, "num_heads": 4})
+        layers = RobertaForSequenceClassification(cfg).init(
+            jax.random.key(0))["params"]["roberta"]["layers"]
+        assert "bias" not in layers["attention"]["output"]
+        assert layers["attention"]["output_bias"].shape == (2, 32)
+        assert layers["ffn_bias"].shape == (2, 32)
+        # Column-parallel layers hold the local half of the width.
+        assert layers["attention"]["query"]["kernel"].shape == (2, 32, 16)
+        assert layers["intermediate"]["kernel"].shape == (2, 32, 32)
+
+    def test_init_accepts_a_key_or_an_rng_dict(self):
+        model = RobertaForSequenceClassification(TINY)
+        a = model.init(jax.random.key(5))
+        b = model.init({"params": jax.random.key(5),
+                        "dropout": jax.random.key(1)})
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        c = model.init(jax.random.key(6))
+        assert not np.array_equal(
+            np.asarray(a["params"]["head_dense"]["kernel"]),
+            np.asarray(c["params"]["head_dense"]["kernel"]))
+
+    def test_encoder_alone(self):
+        from fewbit_tpu.models import RobertaModel
+
+        model = RobertaModel(TINY)
+        batch = tiny_batch()
+        params = model.init(jax.random.key(0))
+        hidden = model.apply(params, batch["input_ids"],
+                             batch["attention_mask"])
+        assert hidden.shape == (4, 16, 32)
+
+    def test_dropout_needs_a_key(self):
+        model = RobertaForSequenceClassification(TINY)
+        batch = tiny_batch()
+        params = model.init(jax.random.key(0))
+        with pytest.raises(ValueError, match="dropout"):
+            model.apply(params, batch["input_ids"], batch["attention_mask"],
+                        deterministic=False)
+        # Dropout keys change the output; the same key reproduces it.
+        run = lambda k: model.apply(  # noqa: E731
+            params, batch["input_ids"], batch["attention_mask"],
+            deterministic=False, rngs={"dropout": jax.random.key(k)})
+        np.testing.assert_array_equal(np.asarray(run(1)), np.asarray(run(1)))
+        assert not np.array_equal(np.asarray(run(1)), np.asarray(run(2)))
+
+    def test_sketched_apply_without_sketch_key_warns(self):
+        cfg = RobertaConfig(**{**TINY.__dict__, "proj_dim_ratio": 0.5})
+        model = RobertaForSequenceClassification(cfg)
+        batch = tiny_batch()
+        params = model.init(jax.random.key(0))
+        with pytest.warns(UserWarning, match="constant key"):
+            model.apply(params, batch["input_ids"], batch["attention_mask"])
+
+    def test_main_path_imports_no_flax(self):
+        import subprocess
+        import sys
+
+        code = ("import sys, fewbit_tpu.models.roberta, fewbit_tpu.train; "
+                "bad = [m for m in sys.modules "
+                "if m.split('.')[0] in ('flax', 'orbax')]; "
+                "assert not bad, bad")
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       env={**__import__("os").environ,
+                            "JAX_PLATFORMS": "cpu"})
 
 
-def test_flash_block_size_resolution():
-    """resolve_block_sizes: tuned table at measured lengths, the
-    generalised auto_blocks rule elsewhere (never the measured-2x-slower
-    kernel defaults), explicit override wins, clamped to the sequence
-    length."""
-    from fewbit_tpu.models.flash import (TUNED_BLOCKS, auto_blocks,
-                                         resolve_block_sizes)
+class TestTrainState:
 
-    bs = resolve_block_sizes(1024)
-    assert bs is not None
-    assert (bs.block_q, bs.block_k) == TUNED_BLOCKS[1024]
-    assert bs.block_k_major == bs.block_k
-    # untabulated lengths use auto_blocks: largest multiple-of-128 block
-    # <= 1024 that divides seq, so flash never silently falls back to the
-    # untuned 128-wide defaults at a length the table does not list.
-    assert auto_blocks(1536) == (768, 768)
-    bs3 = resolve_block_sizes(1536)
-    assert (bs3.block_q, bs3.block_k) == (768, 768)
-    assert auto_blocks(4096) == (1024, 1024)
-    assert auto_blocks(128) == (128, 128)
-    # no lane-aligned divisor -> None (callers keep the standard path)
-    assert auto_blocks(1100) is None
-    assert auto_blocks(192) is None
-    # explicit override beats the table and clamps to seq
-    bs2 = resolve_block_sizes(256, (512, 4096))
-    assert bs2.block_q == 256 and bs2.block_k == 256
+    def make(self):
+        from fewbit_tpu.train import TrainState
+        import optax
 
+        params = {"w": jnp.ones((3,)), "b": jnp.zeros(())}
+        return TrainState.create(apply_fn=lambda *a: None, params=params,
+                                 tx=optax.sgd(0.5))
 
-def test_flash_auto_resolution():
-    """flash_attention='auto' enables the kernel exactly where measured to
-    win (TPU, long seq, no attention dropout) and never errors on
-    dropout>0 configs (it keeps the standard path instead)."""
-    from fewbit_tpu.models import GPTConfig, RobertaConfig
-    from fewbit_tpu.models.flash import FLASH_AUTO_MIN_SEQ, use_flash
+    def test_create_and_apply_gradients(self):
+        state = self.make()
+        assert int(state.step) == 0
+        new = state.apply_gradients(grads={"w": jnp.full((3,), 2.0),
+                                           "b": jnp.ones(())})
+        assert int(new.step) == 1
+        np.testing.assert_allclose(np.asarray(new.params["w"]), 0.0)
+        np.testing.assert_allclose(float(new.params["b"]), -0.5)
+        assert new.tx is state.tx and new.apply_fn is state.apply_fn
 
-    assert use_flash(True, 128, 0.0, backend="tpu")
-    assert not use_flash(True, 4096, 0.0, backend="cpu")
-    assert not use_flash(False, 4096, 0.0, backend="tpu")
-    assert use_flash("auto", FLASH_AUTO_MIN_SEQ, 0.0, backend="tpu")
-    assert not use_flash("auto", FLASH_AUTO_MIN_SEQ - 1, 0.0, backend="tpu")
-    assert not use_flash("auto", FLASH_AUTO_MIN_SEQ, 0.1, backend="tpu")
-    assert not use_flash("auto", FLASH_AUTO_MIN_SEQ, 0.0, backend="cpu")
-    # long but not lane-aligned: no valid block partition exists, so auto
-    # keeps the standard path rather than crash (or crawl) in the kernel
-    assert not use_flash("auto", 1100, 0.0, backend="tpu")
-    # deterministic (eval) traces apply no dropout, so auto engages even
-    # with a training dropout configured.
-    assert use_flash("auto", FLASH_AUTO_MIN_SEQ, 0.1, backend="tpu",
-                     deterministic=True)
-    # invalid values fail EVERYWHERE, including off-TPU (a typo must not
-    # silently disable flash).
-    with pytest.raises(ValueError):
-        use_flash("always", 128, 0.0, backend="tpu")
-    with pytest.raises(ValueError):
-        use_flash("Auto", 4096, 0.0, backend="cpu")
-
-    # auto + dropout is a valid config (standard path in training), True +
-    # dropout is an error (it would silently drop the dropout), and typos
-    # fail at construction.
-    for cls in (RobertaConfig, GPTConfig):
-        cls(flash_attention="auto")  # default dropout > 0: fine
-        with pytest.raises(ValueError):
-            cls(flash_attention=True)
-        with pytest.raises(ValueError):
-            cls(flash_attention="Auto", attention_dropout=0.0)
-
-    # the auto model still runs (standard path on CPU) end-to-end
-    import jax
-    import jax.numpy as jnp
-
-    cfg = RobertaConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                        num_heads=2, intermediate_size=64,
-                        max_position_embeddings=18,
-                        flash_attention="auto", hidden_dropout=0.0,
-                        attention_dropout=0.0)
-    from fewbit_tpu.models import RobertaForSequenceClassification
-
-    model = RobertaForSequenceClassification(cfg)
-    ids = jnp.ones((2, 16), jnp.int32)
-    params = model.init({"params": jax.random.key(0),
-                         "sketch": jax.random.key(0)}, ids)["params"]
-    logits = model.apply({"params": params}, ids,
-                         rngs={"sketch": jax.random.key(1)})
-    assert logits.shape == (2, 2)
+    def test_is_a_pytree_with_static_fields(self):
+        state = self.make()
+        leaves, tree = jax.tree_util.tree_flatten(state)
+        assert len(leaves) == 3  # step, w, b; sgd keeps no state arrays
+        back = jax.tree_util.tree_unflatten(tree, leaves)
+        assert back.tx is state.tx
+        stepped = jax.jit(lambda s: s.replace(step=s.step + 2))(state)
+        assert int(stepped.step) == 2

@@ -48,8 +48,6 @@ def _launch(port: int, pid: int) -> subprocess.Popen:
         "FEWBIT_PROCESS_ID": str(pid),
         "PYTHONPATH": str(REPO),
     })
-    # The suite's own TPU gate must not leak into the workers.
-    env.pop("FEWBIT_TEST_TPU", None)
     return subprocess.Popen(
         [sys.executable, str(WORKER)], env=env, cwd=str(REPO),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

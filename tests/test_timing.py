@@ -1,10 +1,5 @@
-"""tools/timing.py — the shared micro-benchmark protocol.
-
-One implementation serves roofline, tune_flash, exp_megakernel and
-bench.py's clock-state probe (a round-5 review consolidated four copies);
-this pins its semantics on CPU so a protocol change cannot silently skew
-only some of its consumers.
-"""
+"""tools/timing.py — the shared micro-benchmark protocol, pinned on the
+CPU so a protocol change cannot silently skew its consumers."""
 
 import jax.numpy as jnp
 import numpy as np

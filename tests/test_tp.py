@@ -107,3 +107,72 @@ def test_tp_matches_single_device():
     # make_train_step uses deterministic=False, but dropout rates are 0 and
     # gelu/linear are deterministic, so losses must agree.
     np.testing.assert_allclose(tp_loss, ref_loss, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fewbit", [False, True], ids=["dense", "whole_ffn"])
+def test_tp_step_updates_match_single_device(fewbit):
+    """Gradients through the tp region: tp_copy sums the partial input
+    gradients of the column-parallel layers and tp_sum passes the replicated
+    cotangent through once, so one SGD step moves every parameter exactly
+    as the single-device step does (dp=2 x tp=2, no dropout)."""
+    import optax
+
+    from fewbit_tpu.train.loop import classification_loss
+
+    extra = (dict(proj_dim_ratio=0.5, sketch="countsketch") if fewbit
+             else {})
+    mesh = make_dp_tp_mesh(2, 2)
+    model = RobertaForSequenceClassification(tp_config(2, **extra))
+    batch = batch_of(4)
+    state, specs = init_dp_tp_state(
+        model, TrainConfig(total_steps=4), batch, mesh)
+    tparams = jax.device_get(state.params)
+    sgd = optax.sgd(1.0)
+    state = state.replace(tx=sgd, opt_state=sgd.init(state.params))
+    specs = specs.replace(tx=sgd, opt_state=sgd.init(state.params))
+    step = dp_tp_train_step(make_train_step(model, dp_axis="dp"), mesh,
+                            specs)
+    new, _ = step(state, shard_batch(batch, mesh), jax.random.key(0))
+    moved = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
+                         tparams, jax.device_get(new.params))
+
+    def to_single(p):
+        layers = dict(p["roberta"]["layers"])
+        attn = dict(layers["attention"])
+        attn["output"] = {"kernel": attn["output"]["kernel"],
+                          "bias": attn.pop("output_bias")}
+        layers["attention"] = attn
+        bias = layers.pop("ffn_bias")
+        if "ffn" in layers:
+            layers["ffn"] = {**layers["ffn"], "down_bias": bias}
+        else:
+            layers["ffn_output"] = {"kernel": layers["ffn_output"]["kernel"],
+                                    "bias": bias}
+        return {**p, "roberta": {**p["roberta"], "layers": layers}}
+
+    single = RobertaForSequenceClassification(tp_config(1, **extra))
+
+    def loss(p, half):
+        # Each dp shard folds its index into the step key, as the step does.
+        b = {k: v[2 * half:2 * half + 2] for k, v in batch.items()}
+        drop, sketch = jax.random.split(
+            jax.random.fold_in(jax.random.key(0), half))
+        logits = single.apply({"params": p}, b["input_ids"],
+                              b["attention_mask"], deterministic=False,
+                              rngs={"dropout": drop, "sketch": sketch})
+        return classification_loss(logits, b["labels"])
+
+    p0 = to_single(tparams)
+    grads = [jax.grad(loss)(p0, h) for h in (0, 1)]
+    want = jax.tree.map(lambda a, b: (np.asarray(a) + np.asarray(b)) / 2,
+                        *grads)
+    got = to_single(moved)
+    for path, g in jax.tree_util.tree_leaves_with_path(want):
+        name = jax.tree_util.keystr(path)
+        if "['key']['bias']" in name:
+            continue  # softmax is blind to the key bias: its gradient is 0
+        a = got
+        for k in path:
+            a = a[k.key]
+        np.testing.assert_allclose(a, g, rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
